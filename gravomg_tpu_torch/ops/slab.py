@@ -1,0 +1,177 @@
+"""Bucketed variable-window (slab) SpMV (counterpart of
+``gravomg_tpu/ops/slab.py``): pay only for the windows each row block
+needs.
+
+Row blocks are partitioned into buckets by their greedy first-fit
+window count, permuted so each bucket is contiguous, and each bucket is
+one aligned BlockDenseOperator whose window count is the bucket cap.
+The matvec runs the block-window kernel once per bucket and un-permutes
+the output at block granularity.  Each bucket's block count is padded to
+a multiple of 8 (32 above 32 blocks) as in the JAX package, so the
+converted arrays, ``inv_block_perm`` included, equal the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
+                                              blockdense_from_ell, pad_x,
+                                              trim_escape)
+from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_fast
+
+_IMAX = 2**31 - 1
+
+# The slab geometry: 8-row blocks, 128-wide windows at 128-aligned
+# starts (what the block-window kernel takes), at most 24 windows a
+# block.  Counts round up to the nearest bucket cap.
+BLOCK, WINDOW, NW_MAX = 8, 128, 24
+_BUCKET_CAPS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24)
+
+
+class SlabOperator(NamedTuple):
+    """y = diag*x + concat_k(bucket_k(x))[inv_block_perm] (module doc)."""
+
+    diag: Optional[torch.Tensor]
+    buckets: Tuple[BlockDenseOperator, ...]
+    inv_block_perm: torch.Tensor       # (NBLK,) into concatenated blocks
+    n_rows: int
+    n_cols: int
+    block: int
+
+    @property
+    def m_bytes(self) -> int:
+        return sum(b.m.numel() * b.m.element_size() for b in self.buckets)
+
+
+def window_counts(cols: torch.Tensor, valid: torch.Tensor, block: int,
+                  window: int, nw_max: int = 24, align: int = 0):
+    """Per-block greedy first-fit window counts (the rule of
+    blockdense_from_ell's far-window placement).  Returns ((NBLK,)
+    counts, (NBLK,) first-window start, overflow)."""
+    r, k = cols.shape
+    nblk = -(-r // block)
+    bc = torch.full((nblk * block, k), _IMAX, dtype=torch.int64,
+                    device=cols.device)
+    bc[:r] = torch.where(valid, cols.long(), torch.full_like(bc[:r], _IMAX))
+    remaining = bc.reshape(nblk, block * k)
+    imax_t = torch.full_like(remaining, _IMAX)
+    counts = torch.zeros((nblk,), dtype=torch.int32, device=cols.device)
+    first = torch.zeros((nblk,), dtype=torch.int64, device=cols.device)
+    for wi in range(nw_max):
+        s = torch.min(remaining, dim=1).values
+        if align:
+            s = torch.where(s < _IMAX, (s // align) * align, s)
+        has = s < _IMAX
+        if wi == 0:
+            first = torch.where(has, s, torch.zeros_like(s))
+        counts = counts + has.to(torch.int32)
+        remaining = torch.where(remaining < s[:, None] + window, imax_t,
+                                remaining)
+    overflow = bool((torch.min(remaining, dim=1).values < _IMAX).any())
+    return counts, first.to(torch.int32), overflow
+
+
+def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
+                  valid: torch.Tensor, n_cols: int,
+                  diag: Optional[torch.Tensor] = None,
+                  escape_cap: int = 4096) -> SlabOperator:
+    """Build a SlabOperator from (R, K) ELL columns/values/mask.
+
+    Raises ValueError if ``NW_MAX`` windows cannot cover some block
+    (the cloud is not spatially ordered) or a bucket's escape chute
+    overflows ``escape_cap`` (the message then says "escape overflow").
+    """
+    dev = cols.device
+    r, k = cols.shape
+    block, window = BLOCK, WINDOW
+    valid = valid & (vals != 0.0)
+    counts, first, ovf = window_counts(cols, valid, block, window, NW_MAX,
+                                       align=window)
+    if ovf:
+        raise ValueError(
+            f"slab_from_ell: >{NW_MAX} windows needed for some block; "
+            "is the cloud spatially ordered?")
+    counts_h = counts.cpu().numpy()
+    nblk = counts_h.shape[0]
+    caps = np.asarray(_BUCKET_CAPS, np.int32)
+    # Empty blocks ride in the smallest bucket.
+    cap_idx = np.searchsorted(caps, np.maximum(counts_h, 1))
+    perm = np.argsort(cap_idx, kind="stable").astype(np.int64)
+
+    # Rows in bucket order.
+    rpad = nblk * block
+    cols_p = torch.zeros((rpad, k), dtype=cols.dtype, device=dev)
+    cols_p[:r] = torch.where(valid, cols, torch.zeros_like(cols))
+    vals_p = torch.zeros((rpad, k), dtype=vals.dtype, device=dev)
+    vals_p[:r] = vals
+    valid_p = torch.zeros((rpad, k), dtype=torch.bool, device=dev)
+    valid_p[:r] = valid
+    perm_t = torch.as_tensor(perm, device=dev)
+    row_perm = (perm_t[:, None] * block
+                + torch.arange(block, device=dev)[None, :]).reshape(-1)
+    cols_s, vals_s, valid_s = cols_p[row_perm], vals_p[row_perm], \
+        valid_p[row_perm]
+    first_s = first.cpu().numpy().astype(np.int64)[perm]
+
+    buckets = []
+    start = 0
+    bpad = 32
+    inv = np.empty((nblk,), np.int32)
+    pad_off = 0
+    for ci in range(len(caps)):
+        nb = int(np.sum(cap_idx == ci))
+        if nb == 0:
+            continue
+        cap = int(caps[ci])
+        nbp = -(-nb // bpad) * bpad if nb > bpad else -(-nb // 8) * 8
+        lo, hi = start * block, (start + nb) * block
+        c_b, v_b, m_b = cols_s[lo:hi], vals_s[lo:hi], valid_s[lo:hi]
+        anch = first_s[start:start + nb]
+        if nbp > nb:
+            padn = (nbp - nb) * block
+            c_b = torch.cat([c_b, c_b.new_zeros((padn, k))])
+            v_b = torch.cat([v_b, v_b.new_zeros((padn, k))])
+            m_b = torch.cat([m_b, m_b.new_zeros((padn, k))])
+            anch = np.pad(anch, (0, nbp - nb))
+        # Window 0 anchors at each block's first-fit start, so placement
+        # matches window_counts exactly.
+        bop, b_ovf = blockdense_from_ell(
+            c_b, v_b, m_b, n_cols, diag=None, block=block, window=window,
+            nw=cap, escape_cap=escape_cap, window0=window,
+            anchors=torch.as_tensor(anch + window // 2, device=dev),
+            align=window)
+        if b_ovf:
+            raise ValueError("slab_from_ell: escape overflow in bucket "
+                             f"cap={cap} (escape_cap={escape_cap})")
+        buckets.append(trim_escape(bop))
+        inv[perm[start:start + nb]] = pad_off + np.arange(nb)
+        start += nb
+        pad_off += nbp
+
+    return SlabOperator(diag=diag, buckets=tuple(buckets),
+                        inv_block_perm=torch.as_tensor(inv, device=dev),
+                        n_rows=r, n_cols=n_cols, block=block)
+
+
+def slab_matvec(op: SlabOperator, x: torch.Tensor) -> torch.Tensor:
+    """y = A x via the block-window kernel per bucket (its plain twin on
+    the CPU) and a block-level un-permutation.  x is zero-padded once
+    for all buckets (they share n_cols and the window width)."""
+    xp = pad_x(op.buckets[0], x)
+    parts = [blockdense_matvec_fast(b, x, xp).reshape(-1, op.block)
+             for b in op.buckets]
+    ycat = torch.cat(parts, dim=0)                   # (NBLK_padded, BLK)
+    y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
+    if op.diag is not None:
+        y = y + op.diag * x
+    return y
+
+
+def slab_from_operator(op, **kw) -> SlabOperator:
+    """Square-operator wrapper (keeps the diagonal exact)."""
+    return slab_from_ell(op.neighbors, op.offdiag, op.mask,
+                         op.num_vertices, diag=op.diag, **kw)
