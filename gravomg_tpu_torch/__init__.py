@@ -2,7 +2,10 @@
 
 Plain torch on any device; the block-window SpMV that carries the solve
 is a hand-written CUDA kernel for Hopper (``csrc/blockdense_matvec.cu``),
-with a plain torch twin that CPU tensors take.  The JAX package
+as are the transposed-tile SpMV of the ``mxu`` slab form
+(``csrc/mxu_matvec.cu``) and the gather probe's windowed SpMV
+(``csrc/window_gather.cu``); each has a plain torch twin that CPU tensors
+take.  The JAX package
 ``gravomg_tpu`` is the reference the port is tested against; this
 package never imports it.
 """
@@ -12,6 +15,8 @@ from gravomg_tpu_torch.types import (INVALID_INDEX, EllOperator, Graph,
                                      Prolongation, Restriction)
 from gravomg_tpu_torch.solve.spmv import residual, spmv
 from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy, SolverLevel,
+                                            attach_fast_operators,
+                                            attach_operators,
                                             attach_restrictions,
                                             attach_slab_operators,
                                             cast_fast_operators,
@@ -26,7 +31,8 @@ from gravomg_tpu_torch.hierarchy import build_hierarchy_host
 __all__ = [
     "INVALID_INDEX", "EllOperator", "Graph", "MultigridConfig",
     "Prolongation", "Restriction", "SolverHierarchy", "SolverLevel",
-    "attach_restrictions", "attach_slab_operators", "build_hierarchy_host",
+    "attach_fast_operators", "attach_operators", "attach_restrictions",
+    "attach_slab_operators", "build_hierarchy_host",
     "cast_fast_operators", "fcg", "graph_laplacian", "grid_knn_graph_nosync",
     "level_matvec", "load_solver", "mg_fcg", "mg_pcg", "mg_solve", "pcg",
     "residual", "save_solver", "screened_poisson_operator", "solve", "spmv",

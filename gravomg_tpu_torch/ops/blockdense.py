@@ -13,13 +13,14 @@ an exact sorted-COO escape chute.  Then
 
 The conversion reproduces the JAX package's arrays exactly (same window
 placement, same escape order), so converted operators can be compared
-array for array.  The kernel that applies an aligned operator on the
-card is in ``ops/blockdense_cuda.py``; :func:`blockdense_matvec` here is
-the plain torch port of the JAX package's non-kernel matvec, which
-rounds the gathered x to m's dtype.  No solver path calls it (nor
-:func:`window_index`, nor the unaligned and diagonal-anchored branches
-of :func:`blockdense_from_ell`): they are the counterparts that the
-parity tests hold against the JAX package.
+array for array.  The kernels that apply the aligned slab buckets on the
+card are in ``ops/blockdense_cuda.py`` and ``ops/mxu_cuda.py``.  The
+uniform forms that ``attach_fast_operators`` builds for the levels the
+slab forms do not take (unaligned windows, window 0 anchored at
+:func:`block_anchors` or the scaled diagonal) run through
+:func:`blockdense_matvec`, the plain torch port of the JAX package's
+XLA matvec, which rounds the gathered x to m's dtype; the JAX package
+runs these forms through XLA, never through a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from gravomg_tpu_torch.types import EllOperator
 
 _IMAX = 2**31 - 1
 
@@ -232,15 +235,51 @@ def blockdense_matvec(op: BlockDenseOperator, x: torch.Tensor
     """y = A x (1-D x of length n_cols), plain torch.
 
     As in the JAX package's non-kernel path, the gathered windows are
-    rounded to m's dtype before the product (for bf16 m this differs
-    from the kernel, which multiplies by f32 x)."""
+    rounded to m's dtype (for bf16 m this differs from the block-window
+    kernel, which multiplies by f32 x).  The products are formed and
+    summed in f32, as the JAX package's jitted solvers form them: XLA
+    drops the bf16 rounding of the product under jit (excess precision),
+    which moves a bf16 matvec by ~1e-3 relative against JAX's op-by-op
+    result on the 24k fixture."""
     r = op.n_rows
-    nblk, blk, nww = op.m.shape
-    wins = pad_x(op, x)[window_index(op, x.shape[0])].to(op.m.dtype)
     acc = torch.promote_types(op.m.dtype, torch.float32)
-    y = torch.sum((op.m * wins[:, None, :]).to(acc), dim=2)
+    wins = pad_x(op, x)[window_index(op, x.shape[0])].to(op.m.dtype).to(acc)
+    y = torch.sum(op.m.to(acc) * wins[:, None, :], dim=2)
     y = y.reshape(-1)[:r].to(x.dtype)
     y = add_escape(op, y, x)
     if op.diag is not None:
         y = y + op.diag * x
     return y
+
+
+def blockdense_from_operator(op: EllOperator, **kw
+                             ) -> Tuple[BlockDenseOperator, bool]:
+    """Square-operator wrapper (keeps the diagonal exact)."""
+    return blockdense_from_ell(op.neighbors, op.offdiag, op.mask,
+                               op.num_vertices, diag=op.diag, **kw)
+
+
+def block_anchors(cols: torch.Tensor, valid: torch.Tensor,
+                  block: int) -> torch.Tensor:
+    """Per-block window-0 anchor: the median of each row's first valid
+    column (its largest valid column when slot 0 is empty, 0 when the row
+    is empty; pad rows count as 0), 0 for a block with no valid column.
+    The median of an even count is the mean of the middle two in float32,
+    truncated, as ``jnp.median`` gives it."""
+    r, k = cols.shape
+    nblk = -(-r // block)
+    dev = cols.device
+    cols64 = cols.long()
+    has = valid.any(dim=1)
+    top = torch.where(valid, cols64, torch.full_like(cols64, -1)).amax(dim=1)
+    first = torch.where(valid[:, 0], cols64[:, 0],
+                        torch.where(has, top, torch.zeros_like(top)))
+    fb = torch.zeros((nblk * block,), dtype=torch.int64, device=dev)
+    fb[:r] = first
+    srt = torch.sort(fb.reshape(nblk, block), dim=1).values.to(torch.float32)
+    med = ((srt[:, (block - 1) // 2] + srt[:, block // 2]) * 0.5).to(
+        torch.int32)
+    blk_has = torch.zeros((nblk * block,), dtype=torch.bool, device=dev)
+    blk_has[:r] = has
+    return torch.where(blk_has.reshape(nblk, block).any(dim=1), med,
+                       torch.zeros_like(med))

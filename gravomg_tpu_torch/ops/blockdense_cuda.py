@@ -23,58 +23,18 @@ in the package into ``gravomg_tpu_torch/_build/`` and bound with ctypes
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import threading
 
 import torch
 
 from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               add_escape, padded_length)
-from gravomg_tpu_torch.utils.build import build_shared
+from gravomg_tpu_torch.utils.build import CudaLibrary
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "blockdense_matvec.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the block-window SpMV kernel is "
-                       "built from source on a machine with the CUDA "
-                       "toolkit")
-
-
-def build_library(force: bool = False) -> str:
-    """Compile the kernel library if missing (or ``force``); returns its
-    path."""
-    return build_shared([_nvcc(), *NVCC_FLAGS], _SRC, "libgmg_blockdense.so",
-                        force)
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            for name in ("gmg_blockdense_matvec_f32",
-                         "gmg_blockdense_matvec_bf16"):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]
-            _lib = lib
-    return _lib
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+LIBRARY = CudaLibrary("blockdense_matvec.cu",
+                      {"gmg_blockdense_matvec_f32": _ARGS,
+                       "gmg_blockdense_matvec_bf16": _ARGS})
 
 
 def _check_aligned_op(op: BlockDenseOperator) -> None:
@@ -139,7 +99,7 @@ def blockdense_matvec_cuda(op: BlockDenseOperator, x: torch.Tensor,
             and xp.shape[0] >= padded_length(op, op.n_cols)):
         raise ValueError("xp must be x zero-padded by pad_x (1-D float32, "
                          "contiguous, on x's device)")
-    lib = _load()
+    lib = LIBRARY.load()
     fn = (lib.gmg_blockdense_matvec_f32 if m.dtype == torch.float32
           else lib.gmg_blockdense_matvec_bf16)
     y = torch.empty((nblk * blk,), dtype=torch.float32, device=x.device)

@@ -9,6 +9,12 @@ The matvec runs the block-window kernel once per bucket and un-permutes
 the output at block granularity.  Each bucket's block count is padded to
 a multiple of 8 (32 above 32 blocks) as in the JAX package, so the
 converted arrays, ``inv_block_perm`` included, equal the JAX package's.
+
+``mxu=True`` selects the JAX package's transposed-tile form: 128-row
+blocks, each bucket's ``m`` stored as (NBP, cap, 128, 128) tiles with
+``m[b, s, l, r] = A[b*128 + r, win_start[b, s] + l]``, applied by the
+kernel of ``ops/mxu_cuda.py`` (which rounds x to m's dtype, as the TPU
+kernel does).
 """
 
 from __future__ import annotations
@@ -22,13 +28,14 @@ from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               blockdense_from_ell, pad_x,
                                               trim_escape)
 from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_fast
+from gravomg_tpu_torch.ops.mxu_cuda import mxu_matvec_fast
 
 _IMAX = 2**31 - 1
 
-# The slab geometry: 8-row blocks, 128-wide windows at 128-aligned
-# starts (what the block-window kernel takes), at most 24 windows a
-# block.  Counts round up to the nearest bucket cap.
-BLOCK, WINDOW, NW_MAX = 8, 128, 24
+# The slab geometry: 8-row blocks (128 in the transposed-tile form),
+# 128-wide windows at 128-aligned starts (what both kernels take), at
+# most 24 windows a block.  Counts round up to the nearest bucket cap.
+BLOCK, MXU_BLOCK, WINDOW, NW_MAX = 8, 128, 128, 24
 _BUCKET_CAPS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24)
 
 
@@ -41,6 +48,7 @@ class SlabOperator(NamedTuple):
     n_rows: int
     n_cols: int
     block: int
+    mxu: bool = False                  # transposed-tile form (module doc)
 
     @property
     def m_bytes(self) -> int:
@@ -78,8 +86,9 @@ def window_counts(cols: torch.Tensor, valid: torch.Tensor, block: int,
 def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
                   valid: torch.Tensor, n_cols: int,
                   diag: Optional[torch.Tensor] = None,
-                  escape_cap: int = 4096) -> SlabOperator:
-    """Build a SlabOperator from (R, K) ELL columns/values/mask.
+                  escape_cap: int = 4096, mxu: bool = False) -> SlabOperator:
+    """Build a SlabOperator from (R, K) ELL columns/values/mask; ``mxu``
+    selects the transposed-tile form (128-row blocks).
 
     Raises ValueError if ``NW_MAX`` windows cannot cover some block
     (the cloud is not spatially ordered) or a bucket's escape chute
@@ -87,7 +96,7 @@ def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
     """
     dev = cols.device
     r, k = cols.shape
-    block, window = BLOCK, WINDOW
+    block, window = (MXU_BLOCK if mxu else BLOCK), WINDOW
     valid = valid & (vals != 0.0)
     counts, first, ovf = window_counts(cols, valid, block, window, NW_MAX,
                                        align=window)
@@ -147,23 +156,30 @@ def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
         if b_ovf:
             raise ValueError("slab_from_ell: escape overflow in bucket "
                              f"cap={cap} (escape_cap={escape_cap})")
-        buckets.append(trim_escape(bop))
+        bop = trim_escape(bop)
+        if mxu:
+            # (NBP, 128, cap*128) row-major -> (NBP, cap, 128, 128) tiles
+            # [b, s, l, r].
+            bop = bop._replace(m=bop.m.reshape(nbp, block, cap, window)
+                               .permute(0, 2, 3, 1).contiguous())
+        buckets.append(bop)
         inv[perm[start:start + nb]] = pad_off + np.arange(nb)
         start += nb
         pad_off += nbp
 
     return SlabOperator(diag=diag, buckets=tuple(buckets),
                         inv_block_perm=torch.as_tensor(inv, device=dev),
-                        n_rows=r, n_cols=n_cols, block=block)
+                        n_rows=r, n_cols=n_cols, block=block, mxu=mxu)
 
 
 def slab_matvec(op: SlabOperator, x: torch.Tensor) -> torch.Tensor:
-    """y = A x via the block-window kernel per bucket (its plain twin on
-    the CPU) and a block-level un-permutation.  x is zero-padded once
-    for all buckets (they share n_cols and the window width)."""
+    """y = A x via the block-window kernel (the transposed-tile kernel
+    for an ``mxu`` form) per bucket, their plain twins on the CPU, and a
+    block-level un-permutation.  x is zero-padded once for all buckets
+    (they share n_cols and the window width)."""
     xp = pad_x(op.buckets[0], x)
-    parts = [blockdense_matvec_fast(b, x, xp).reshape(-1, op.block)
-             for b in op.buckets]
+    bucket_mv = mxu_matvec_fast if op.mxu else blockdense_matvec_fast
+    parts = [bucket_mv(b, x, xp).reshape(-1, op.block) for b in op.buckets]
     ycat = torch.cat(parts, dim=0)                   # (NBLK_padded, BLK)
     y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
     if op.diag is not None:

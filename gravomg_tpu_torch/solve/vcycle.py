@@ -2,21 +2,27 @@
 ``gravomg_tpu/solve/vcycle.py``).
 
 Levels that carry slab forms (``attach_slab_operators``) apply A, U and
-U^T through the block-window kernel; the rest use the ELL gather forms.
+U^T through the block-window kernel (the transposed-tile kernel for the
+``mxu`` form); ``attach_fast_operators`` gives the levels that have none
+the uniform block-dense forms; what has neither uses the ELL gather forms.
 The cycle is a plain Python recursion over the levels.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from gravomg_tpu_torch.config import MultigridConfig
+from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
+                                              block_anchors,
+                                              blockdense_from_ell,
+                                              blockdense_from_operator,
+                                              blockdense_matvec, trim_escape)
 from gravomg_tpu_torch.ops.slab import (WINDOW, SlabOperator,
-                                        slab_from_ell, slab_from_operator,
-                                        slab_matvec)
+                                        slab_from_ell, slab_matvec)
 from gravomg_tpu_torch.prolong.operator import (build_restriction, prolong,
                                                 restrict, restrict_gather)
 from gravomg_tpu_torch.solve.coarse import coarse_solve
@@ -25,15 +31,17 @@ from gravomg_tpu_torch.solve.smoothers import (ChebyshevParams, chebyshev,
 from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.types import EllOperator, Prolongation, Restriction
 
+FastOperator = Union[SlabOperator, BlockDenseOperator]
+
 
 class SolverLevel(NamedTuple):
     op: EllOperator
     u: Optional[Prolongation]           # maps next-coarser level -> this
     cheb: Optional[ChebyshevParams]
     ut: Optional[Restriction] = None    # gather-form U^T
-    banded: Optional[SlabOperator] = None   # A_l, slab form
-    uw: Optional[SlabOperator] = None       # U, slab form
-    utw: Optional[SlabOperator] = None      # U^T, slab form
+    banded: Optional[FastOperator] = None   # A_l, slab or uniform form
+    uw: Optional[FastOperator] = None       # U
+    utw: Optional[FastOperator] = None      # U^T
 
 
 class SolverHierarchy(NamedTuple):
@@ -41,10 +49,17 @@ class SolverHierarchy(NamedTuple):
     coarse_chol: torch.Tensor
 
 
+def apply_fast(op: FastOperator, x: torch.Tensor) -> torch.Tensor:
+    """A slab or uniform block-dense form on a 1-D vector."""
+    if isinstance(op, SlabOperator):
+        return slab_matvec(op, x)
+    return blockdense_matvec(op, x)
+
+
 def level_matvec(level: SolverLevel, x: torch.Tensor) -> torch.Tensor:
-    """A_l @ x through the slab form when present, else ELL."""
+    """A_l @ x through the slab or uniform form when present, else ELL."""
     if level.banded is not None and x.ndim == 1:
-        return slab_matvec(level.banded, x)
+        return apply_fast(level.banded, x)
     return spmv(level.op, x)
 
 
@@ -63,7 +78,7 @@ def _smooth(level: SolverLevel, x, b, iters: int, cfg: MultigridConfig,
 def _restrict_level(level: SolverLevel, r: torch.Tensor,
                     one_d: bool) -> torch.Tensor:
     if level.utw is not None and one_d:
-        return slab_matvec(level.utw, r)
+        return apply_fast(level.utw, r)
     if level.ut is not None:
         return restrict_gather(level.ut, r)
     return restrict(level.u, r)
@@ -72,7 +87,7 @@ def _restrict_level(level: SolverLevel, r: torch.Tensor,
 def _prolong_level(level: SolverLevel, ec: torch.Tensor,
                    one_d: bool) -> torch.Tensor:
     if level.uw is not None and one_d:
-        return slab_matvec(level.uw, ec)
+        return apply_fast(level.uw, ec)
     return prolong(level.u, ec)
 
 
@@ -163,73 +178,168 @@ def slab_slots(h: SolverHierarchy, min_rows: int = 4096):
     return slots
 
 
+def slot_ell(level: SolverLevel, field: str):
+    """(cols, vals, valid, n_cols, diag): the ELL arrays of a level's A
+    (``field`` "banded"), U ("uw") or U^T ("utw", from the gather table),
+    which its fast forms are converted from."""
+    if field == "banded":
+        op = level.op
+        return op.neighbors, op.offdiag, op.mask, op.num_vertices, op.diag
+    if field == "uw":
+        u = level.u
+        return (u.cols, u.weights, torch.ones_like(u.cols, dtype=torch.bool),
+                u.n_coarse, None)
+    rt = level.ut
+    return rt.safe_rows(), rt.weights, rt.mask, rt.n_fine, None
+
+
 def attach_slab_operators(h: SolverHierarchy, min_rows: int = 4096,
-                          escape_cap: int = 65536) -> SolverHierarchy:
+                          escape_cap: int = 65536,
+                          mxu: bool = False) -> SolverHierarchy:
     """Populate slab forms of A, U and U^T on every slot of
     :func:`slab_slots` (the hierarchy must be spatially ordered; missing
-    U^T tables are attached first).  Other levels keep the ELL forms.
-    The escape capacity grows 4x on overflow.
+    U^T tables are attached first).  ``mxu`` selects the transposed-tile
+    form (128-row blocks).  The escape capacity grows 4x on overflow.
 
-    A slot that gets no slab form (a block needs more than 24 windows,
-    or the escape chute outgrows four retries) keeps its ELL form on the
-    CPU, where both forms are plain torch.  On a CUDA hierarchy it
-    raises: the ELL form there would run plain torch in place of the
-    kernel, and the uniform block-dense form that takes such levels in
-    the JAX package is not ported yet."""
+    As in the JAX package, a slot that gets no slab form (a block needs
+    more than 24 windows, or the escape chute outgrows four retries)
+    stays None: :func:`attach_fast_operators` then gives a level without
+    any fast form the uniform one, and a level that has some keeps the
+    ELL form in that slot."""
     h = attach_restrictions(h)
-    on_card = h.levels[0].op.diag.is_cuda
 
-    def convert(li, build, *args):
+    def convert(cols, vals, valid, n_cols, diag):
         cap = escape_cap
         for _ in range(4):
             try:
-                return build(*args, escape_cap=cap)
+                return slab_from_ell(cols, vals, valid, n_cols, diag=diag,
+                                     escape_cap=cap, mxu=mxu)
             except ValueError as e:
-                err = e
                 if "escape overflow" not in str(e):
-                    break
+                    return None
                 cap *= 4
-        if on_card:
-            raise RuntimeError(f"attach_slab_operators: level {li} has no "
-                               f"slab form on the card: {err}") from err
         return None
 
-    slots = set(slab_slots(h, min_rows))
+    slots = slab_slots(h, min_rows)
+    levels = tuple(
+        lvl._replace(**{f: convert(*slot_ell(lvl, f))
+                        for li_s, f in slots if li_s == li})
+        for li, lvl in enumerate(h.levels))
+    return h._replace(levels=levels)
+
+
+def attach_fast_operators(h: SolverHierarchy, block: int = 256,
+                          window: int = 128, dtype=None,
+                          escape_cap: Optional[int] = None,
+                          trim: bool = True,
+                          geometry: Optional[dict] = None,
+                          used_geometry: Optional[dict] = None
+                          ) -> SolverHierarchy:
+    """Populate uniform block-dense forms on every level that has no
+    fast form yet (a level with any of ``banded``, ``uw``, ``utw`` set,
+    e.g. by :func:`attach_slab_operators`, is left as it is).
+
+    The hierarchy must be spatially ordered.  Window 0 is wide and
+    covers each row block's diagonal band (for U and U^T it anchors at
+    :func:`block_anchors`), the far windows are ``window`` wide; on an
+    escape overflow the conversion retries with 2 more far windows (at
+    most 24) and 4x the escape capacity.  The coarsest level keeps only
+    its dense factor.  ``dtype`` casts the window matrices.  ``trim``
+    False keeps the full escape capacity; ``geometry`` maps
+    ``(level, slot)`` (slots "a", "u", "ut") to (nw, cap) floors for the
+    retry loop; ``used_geometry`` (a dict) receives the (nw, cap) each
+    conversion settled on."""
+
+    def convert(build, *args, start_nw, start_cap, key, **kw):
+        cur_nw, cap = (geometry or {}).get(key, (start_nw, start_cap))
+        cur_nw, cap = max(cur_nw, start_nw), max(cap, start_cap)
+        while True:
+            bop, ovf = build(*args, nw=cur_nw, escape_cap=cap, **kw)
+            if not ovf:
+                break
+            cur_nw = min(cur_nw + 2, 24)
+            cap = cap * 4
+        if used_geometry is not None:
+            used_geometry[key] = (cur_nw, cap)
+        if trim:
+            bop = trim_escape(bop)
+        if dtype is not None:
+            bop = bop._replace(m=bop.m.to(dtype))
+        return bop
+
     levels = []
     for li, lvl in enumerate(h.levels):
         new = lvl
-        if (li, "banded") in slots:
-            new = new._replace(banded=convert(li, slab_from_operator,
-                                              lvl.op))
-        if (li, "uw") in slots:
+        v = lvl.op.num_vertices
+        blk = min(block, max(v // 8, 8))
+        if (new.banded is not None or new.uw is not None
+                or new.utw is not None):
+            levels.append(new)
+            continue
+        if li < len(h.levels) - 1:
+            # Diagonal band: block +- 2*block covers the near spread.
+            w0 = min(-(-3 * blk // 128) * 128, v)
+            new = new._replace(banded=convert(
+                blockdense_from_operator, lvl.op, start_nw=6,
+                start_cap=escape_cap or max(1024, v // 8), key=(li, "a"),
+                block=blk, window=min(window, v), window0=w0))
+        if lvl.u is not None:
             u = lvl.u
+            nc = u.n_coarse
+            # A block of BLK fine rows spans ~BLK/ratio coarse columns.
+            ratio = max(u.n_fine // max(nc, 1), 1)
+            w0 = min(-(-max(4 * blk // ratio, 128) // 64) * 64, nc)
+            ones = torch.ones_like(u.cols, dtype=torch.bool)
             new = new._replace(uw=convert(
-                li, slab_from_ell, u.cols, u.weights,
-                torch.ones_like(u.cols, dtype=torch.bool), u.n_coarse))
-        if (li, "utw") in slots:
+                blockdense_from_ell, u.cols, u.weights, ones, nc,
+                start_nw=4,
+                start_cap=escape_cap or max(1024, u.n_fine // 16),
+                key=(li, "u"), block=blk, window=min(window, nc),
+                window0=w0, anchors=block_anchors(u.cols, ones, blk)))
+        if lvl.ut is not None:
             rt = lvl.ut
+            # A block of coarse rows spans ~block*ratio fine columns.
+            ratio = max(rt.n_fine // max(rt.n_coarse, 1), 1)
+            blk_r = min(64, max(rt.n_coarse // 8, 8))
+            w0 = min(-(-3 * blk_r * ratio // 128) * 128, rt.n_fine)
+            vmask = rt.mask
             new = new._replace(utw=convert(
-                li, slab_from_ell, rt.safe_rows(), rt.weights, rt.mask,
-                rt.n_fine))
+                blockdense_from_ell, rt.safe_rows(), rt.weights, vmask,
+                rt.n_fine, start_nw=4,
+                start_cap=escape_cap or max(1024, rt.n_coarse),
+                key=(li, "ut"), block=blk_r, window=min(window, rt.n_fine),
+                window0=w0,
+                anchors=block_anchors(rt.safe_rows(), vmask, blk_r)))
         levels.append(new)
     return h._replace(levels=tuple(levels))
 
 
-def cast_fast_operators(h: SolverHierarchy, dtype) -> SolverHierarchy:
-    """Copy of a slab-attached hierarchy with the window matrices cast to
-    ``dtype`` (bf16 for preconditioner duty).  Diagonals, escape chutes
-    and the ELL operators keep their precision."""
+def attach_operators(h: SolverHierarchy,
+                     slab_min_rows: int = 4096) -> SolverHierarchy:
+    """Slab forms on the levels of at least ``slab_min_rows`` rows, then
+    uniform block-dense forms on the rest (it skips populated levels)."""
+    h = attach_slab_operators(h, min_rows=slab_min_rows)
+    return attach_fast_operators(h)
 
-    def cast(sop: SlabOperator) -> SlabOperator:
-        return sop._replace(buckets=tuple(
-            b._replace(m=b.m.to(dtype)) for b in sop.buckets))
+
+def cast_fast_operators(h: SolverHierarchy, dtype) -> SolverHierarchy:
+    """Copy of a hierarchy with the window matrices of its slab and
+    uniform forms cast to ``dtype`` (bf16 for preconditioner duty).
+    Diagonals, escape chutes and the ELL operators keep their
+    precision."""
+
+    def cast(op: FastOperator) -> FastOperator:
+        if isinstance(op, SlabOperator):
+            return op._replace(buckets=tuple(
+                b._replace(m=b.m.to(dtype)) for b in op.buckets))
+        return op._replace(m=op.m.to(dtype))
 
     levels = []
     for lvl in h.levels:
         new = lvl
         for field in ("banded", "uw", "utw"):
-            sop = getattr(lvl, field)
-            if sop is not None:
-                new = new._replace(**{field: cast(sop)})
+            op = getattr(lvl, field)
+            if op is not None:
+                new = new._replace(**{field: cast(op)})
         levels.append(new)
     return h._replace(levels=tuple(levels))

@@ -3,12 +3,17 @@ use, into ``gravomg_tpu_torch/_build/`` (listed in .gitignore)."""
 
 from __future__ import annotations
 
+import ctypes
 import os
+import shutil
 import subprocess
 import tempfile
+import threading
 
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build")
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
 def build_shared(compile_argv, src: str, name: str,
@@ -34,3 +39,43 @@ def build_shared(compile_argv, src: str, name: str,
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the package's CUDA kernels are "
+                       "built from source on a machine with the CUDA "
+                       "toolkit")
+
+
+class CudaLibrary:
+    """One kernel source of ``gravomg_tpu_torch/csrc/`` with a plain C
+    interface: built with nvcc (sm_90a) at first use and loaded with
+    ctypes.  ``functions`` maps each exported name to its argtypes; every
+    export returns an int (a cudaError_t, 0 on success)."""
+
+    def __init__(self, source: str, functions: dict):
+        self.src = os.path.join(PKG_DIR, "csrc", source)
+        self.name = "libgmg_" + os.path.splitext(source)[0] + ".so"
+        self.functions = functions
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self, force: bool = False) -> str:
+        return build_shared([nvcc(), *NVCC_FLAGS], self.src, self.name,
+                            force)
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self.build())
+                for name, argtypes in self.functions.items():
+                    fn = getattr(lib, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = argtypes
+                self._lib = lib
+        return self._lib

@@ -18,14 +18,16 @@ import pytest
 import torch
 
 from gravomg_tpu_torch.io.serialization import load_solver
-from gravomg_tpu_torch.ops.blockdense import pad_x
+from gravomg_tpu_torch.ops.blockdense import BlockDenseOperator, pad_x
 from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matvec_cuda,
                                                    blockdense_matvec_fast,
                                                    blockdense_matvec_plain)
 from gravomg_tpu_torch.ops.slab import slab_from_operator, slab_matvec
+from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.solve.vcycle import (SolverLevel,
+                                            attach_fast_operators,
                                             attach_slab_operators,
-                                            slab_slots)
+                                            level_matvec, slab_slots)
 from gravomg_tpu_torch.types import INVALID_INDEX
 
 HALO = os.path.join(os.path.dirname(__file__), "..", "assets",
@@ -79,8 +81,8 @@ def test_kernel_matches_twin_on_card(card):
 
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_cannot_take(card):
-    """Shapes and types the kernel does not take, and hierarchy levels
-    that would leave it out, raise."""
+    """Shapes and types the kernel does not take raise; a level that
+    gets no slab form gets the uniform form from attach_fast_operators."""
     h = load_solver(HALO, device=card)
     b = slab_from_operator(h.levels[0].op, escape_cap=65536).buckets[0]
     x = torch.randn(b.n_cols, device=card)
@@ -101,8 +103,9 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(card):
     assert blockdense_matvec_cuda.launches == before + 1
 
     # A level that gets no slab form (random row order: its blocks need
-    # more than 24 windows) is refused on the card, where the ELL form
-    # would run plain torch in place of the kernel.
+    # more than 24 windows) stays None on the card, as in the JAX
+    # package; attach_fast_operators then gives it the uniform form,
+    # which runs plain torch, as the JAX package runs it through XLA.
     op = h.levels[0].op
     perm = torch.as_tensor(np.random.default_rng(3).permutation(
         op.num_vertices), device=card)
@@ -113,5 +116,11 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(card):
     shuffled = op._replace(neighbors=nbr, offdiag=op.offdiag[perm],
                            diag=op.diag[perm])
     h1 = h._replace(levels=(SolverLevel(shuffled, None, None), h.levels[-1]))
-    with pytest.raises(RuntimeError, match="no slab form"):
-        attach_slab_operators(h1)
+    hs = attach_slab_operators(h1)
+    assert hs.levels[0].banded is None
+    hf = attach_fast_operators(hs)
+    assert isinstance(hf.levels[0].banded, BlockDenseOperator)
+    xs = torch.randn(op.num_vertices, device=card)
+    y_ell = spmv(shuffled, xs)
+    torch.testing.assert_close(level_matvec(hf.levels[0], xs), y_ell, rtol=0,
+                               atol=1e-6 * float(y_ell.abs().max()))

@@ -24,6 +24,7 @@ from gravomg_tpu_torch.geometry.order import morton_order
 from gravomg_tpu_torch.io.serialization import (save_solver,
                                                 solver_from_numpy,
                                                 solver_to_numpy)
+from gravomg_tpu_torch.ops.blockdense import BlockDenseOperator
 from gravomg_tpu_torch.solve.vcycle import slab_slots
 from gravomg_tpu_torch.types import INVALID_INDEX
 
@@ -75,9 +76,11 @@ def test_whole_slice_matches_jax(tmp_path):
 
 def test_unordered_level_keeps_ell_on_cpu():
     """The 24k fixture's level 0 under a random row order: its blocks need
-    more than 24 windows, so it gets no slab form and keeps the ELL form
-    on the CPU (on a card attach_slab_operators raises instead,
-    tests/test_torch_kernel_card.py), and its matvec is the ELL one."""
+    more than 24 windows, so, as in the JAX package, it gets no slab form
+    (None, on the CPU as on a card, tests/test_torch_kernel_card.py) and
+    its matvec is the ELL one; attach_fast_operators then gives it the
+    uniform block-dense form, whose matvec agrees with the ELL one at
+    1e-6 * max|y| (another summation order)."""
     h = gt.load_solver(HALO)
     op = h.levels[0].op
     perm = torch.as_tensor(np.random.default_rng(3).permutation(
@@ -95,4 +98,9 @@ def test_unordered_level_keeps_ell_on_cpu():
     assert (0, "banded") in slab_slots(h1) and hs.levels[0].banded is None
     x = torch.randn(op.num_vertices,
                     generator=torch.Generator().manual_seed(0))
-    assert torch.equal(gt.level_matvec(hs.levels[0], x), gt.spmv(shuffled, x))
+    y_ell = gt.spmv(shuffled, x)
+    assert torch.equal(gt.level_matvec(hs.levels[0], x), y_ell)
+    hf = gt.attach_fast_operators(hs)
+    assert isinstance(hf.levels[0].banded, BlockDenseOperator)
+    torch.testing.assert_close(gt.level_matvec(hf.levels[0], x), y_ell,
+                               rtol=0, atol=1e-6 * float(y_ell.abs().max()))
