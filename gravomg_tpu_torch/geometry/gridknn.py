@@ -14,6 +14,7 @@ import torch
 
 from gravomg_tpu_torch.ops.segment import build_ell_rows
 from gravomg_tpu_torch.types import INVALID_INDEX, Graph
+from gravomg_tpu_torch.utils.device import resolve_device
 
 # Bytes of candidate temporaries one chunk may hold (ids, squared
 # distances, gathered positions: ~32 bytes per candidate).
@@ -73,8 +74,9 @@ def _grid_knn_indices(points: torch.Tensor, k: int, cell_edge: float,
 
 def grid_knn_graph_nosync(points_np: np.ndarray, k: int,
                           max_degree: int | None = None,
-                          margin: float = 2.0, device="cpu") -> Graph:
-    """Symmetrised grid kNN graph of ``points_np`` on ``device``.
+                          margin: float = 2.0, device=None) -> Graph:
+    """Symmetrised grid kNN graph of ``points_np`` on ``device`` (the
+    card unless the caller names another, e.g. ``"cpu"``).
 
     One conservatively sized attempt (cell edge = ``margin`` x the
     largest kth-neighbour distance of a host subsample), as in the JAX
@@ -82,6 +84,7 @@ def grid_knn_graph_nosync(points_np: np.ndarray, k: int,
     certified by the cell window, or some vertex's symmetrised degree
     exceeds ``max_degree`` (default 2k).
     """
+    device = resolve_device(device)
     v = points_np.shape[0]
     if max_degree is None:
         max_degree = 2 * k

@@ -19,6 +19,7 @@ from gravomg_tpu_torch.solve.smoothers import ChebyshevParams
 from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy, SolverLevel,
                                             attach_restrictions)
 from gravomg_tpu_torch.types import EllOperator, Prolongation
+from gravomg_tpu_torch.utils.device import resolve_device
 
 
 def solver_to_numpy(h: SolverHierarchy) -> dict:
@@ -44,10 +45,13 @@ def save_solver(path: str, h: SolverHierarchy) -> None:
 
 
 def solver_from_numpy(arrays: Mapping[str, np.ndarray],
-                      device="cpu") -> SolverHierarchy:
-    """Tensors on ``device`` from the npz key layout (a loaded npz or a
+                      device=None) -> SolverHierarchy:
+    """Tensors on ``device`` (the card unless the caller names another:
+    :func:`resolve_device`) from the npz key layout (a loaded npz or a
     dict, e.g. the arrays of a JAX ``SolverHierarchy``), with the
     gather-form U^T tables recomputed (derived data, never stored)."""
+    device = resolve_device(device)
+
     def t(key):
         return torch.as_tensor(np.asarray(arrays[key]), device=device)
 
@@ -67,6 +71,9 @@ def solver_from_numpy(arrays: Mapping[str, np.ndarray],
                                                coarse_chol=t("coarse_chol")))
 
 
-def load_solver(path: str, device="cpu") -> SolverHierarchy:
+def load_solver(path: str, device=None) -> SolverHierarchy:
+    """The hierarchy of an npz file, on the card unless ``device`` names
+    another device (``"cpu"``)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         return solver_from_numpy(z, device=device)

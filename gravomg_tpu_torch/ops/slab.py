@@ -6,7 +6,8 @@ Row blocks are partitioned into buckets by their greedy first-fit
 window count, permuted so each bucket is contiguous, and each bucket is
 one aligned BlockDenseOperator whose window count is the bucket cap.
 The matvec runs the block-window kernel once per bucket and un-permutes
-the output at block granularity.  Each bucket's block count is padded to
+the output at block granularity; a transposed-tile form takes one launch
+for all its buckets, which writes y in row order.  Each bucket's block count is padded to
 a multiple of 8 (32 above 32 blocks) as in the JAX package, so the
 converted arrays, ``inv_block_perm`` included, equal the JAX package's.
 
@@ -14,7 +15,7 @@ converted arrays, ``inv_block_perm`` included, equal the JAX package's.
 blocks, each bucket's ``m`` stored as (NBP, cap, 128, 128) tiles with
 ``m[b, s, l, r] = A[b*128 + r, win_start[b, s] + l]``, applied by the
 kernel of ``ops/mxu_cuda.py`` (which rounds x to m's dtype, as the TPU
-kernel does).
+kernel does) from the form's work table ``plan``, built here once.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               blockdense_from_ell, pad_x,
                                               trim_escape)
 from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_fast
-from gravomg_tpu_torch.ops.mxu_cuda import mxu_matvec_fast
+from gravomg_tpu_torch.ops.mxu_cuda import (MxuPlan, mxu_plan,
+                                            mxu_slab_matvec_fast)
 
 _IMAX = 2**31 - 1
 
@@ -49,6 +51,7 @@ class SlabOperator(NamedTuple):
     n_cols: int
     block: int
     mxu: bool = False                  # transposed-tile form (module doc)
+    plan: Optional[MxuPlan] = None     # its work table (ops/mxu_cuda.py)
 
     @property
     def m_bytes(self) -> int:
@@ -126,7 +129,7 @@ def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
         valid_p[row_perm]
     first_s = first.cpu().numpy().astype(np.int64)[perm]
 
-    buckets = []
+    buckets, out_blocks = [], []
     start = 0
     bpad = 32
     inv = np.empty((nblk,), np.int32)
@@ -163,25 +166,36 @@ def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
             bop = bop._replace(m=bop.m.reshape(nbp, block, cap, window)
                                .permute(0, 2, 3, 1).contiguous())
         buckets.append(bop)
+        out_blocks.append(np.concatenate(
+            [perm[start:start + nb], np.full(nbp - nb, -1, np.int64)]))
         inv[perm[start:start + nb]] = pad_off + np.arange(nb)
         start += nb
         pad_off += nbp
 
+    plan = None
+    if mxu:
+        plan = mxu_plan([tuple(b.win_start.shape) for b in buckets],
+                        out_blocks, dev)
     return SlabOperator(diag=diag, buckets=tuple(buckets),
                         inv_block_perm=torch.as_tensor(inv, device=dev),
-                        n_rows=r, n_cols=n_cols, block=block, mxu=mxu)
+                        n_rows=r, n_cols=n_cols, block=block, mxu=mxu,
+                        plan=plan)
 
 
 def slab_matvec(op: SlabOperator, x: torch.Tensor) -> torch.Tensor:
-    """y = A x via the block-window kernel (the transposed-tile kernel
-    for an ``mxu`` form) per bucket, their plain twins on the CPU, and a
-    block-level un-permutation.  x is zero-padded once for all buckets
-    (they share n_cols and the window width)."""
-    xp = pad_x(op.buckets[0], x)
-    bucket_mv = mxu_matvec_fast if op.mxu else blockdense_matvec_fast
-    parts = [bucket_mv(b, x, xp).reshape(-1, op.block) for b in op.buckets]
-    ycat = torch.cat(parts, dim=0)                   # (NBLK_padded, BLK)
-    y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
+    """y = A x.  An ``mxu`` form takes one launch of the transposed-tile
+    kernel over all its buckets, which writes y in row order; an 8-row
+    form the block-window kernel per bucket and a block-level
+    un-permutation; on the CPU their plain twins.  x is zero-padded once
+    for all buckets (they share n_cols and the window width)."""
+    if op.mxu:
+        y = mxu_slab_matvec_fast(op, x)
+    else:
+        xp = pad_x(op.buckets[0], x)
+        parts = [blockdense_matvec_fast(b, x, xp).reshape(-1, op.block)
+                 for b in op.buckets]
+        ycat = torch.cat(parts, dim=0)               # (NBLK_padded, BLK)
+        y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
     if op.diag is not None:
         y = y + op.diag * x
     return y

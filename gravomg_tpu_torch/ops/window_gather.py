@@ -13,7 +13,9 @@ in f32, returned as (NB, rows).  Starts are clamped to
 [0, len(x) - window], as ``lax.dynamic_slice`` clamps a window that runs
 off the end (P2's last starts do), and local indices to [0, window - 1],
 so that the kernel never reads out of bounds (the probes draw them in
-range).
+range).  The kernel splits each row block over 4 thread blocks, each of
+which copies the window into shared memory asynchronously while its
+first 16-byte loads of ``lidx`` and ``w`` are under way.
 
 :func:`window_gather_fast` dispatches on the device of x: a CUDA tensor
 goes to :func:`window_gather_cuda`, which launches the kernel or raises;
@@ -29,7 +31,7 @@ import torch
 from gravomg_tpu_torch.utils.build import CudaLibrary
 
 ENTRIES = 32                   # entries a row: one warp lane each
-MAX_WINDOW = 12288             # floats of x in 48 KB of shared memory
+MAX_WINDOW = 12288             # floats of x a thread block keeps (48 KB)
 LIBRARY = CudaLibrary("window_gather.cu", {"gmg_window_gather": [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -76,6 +78,8 @@ def window_gather_cuda(x: torch.Tensor, starts: torch.Tensor,
                          f"got {window}")
     if not all(t.is_contiguous() for t in (x, starts, lidx, w)):
         raise ValueError("x, starts, lidx and w must be contiguous")
+    if lidx.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("lidx and w must be 16-byte aligned")
     fn = LIBRARY.load().gmg_window_gather
     y = torch.empty((nb, rows), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

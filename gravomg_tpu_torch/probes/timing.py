@@ -1,0 +1,132 @@
+"""What the probes and ``chip_smoke.py`` share to time a kernel on the
+card and to hold the time against the card's bound.
+
+A kernel's bound is the least time the card could take for the same
+work: the bytes the function must move (each input read once, each
+output written once) over the H100's published device-memory rate, or
+its operations over the published f32 rate of the CUDA cores, whichever
+is larger.
+"""
+
+from __future__ import annotations
+
+import statistics
+
+import torch
+
+from gravomg_tpu_torch.ops.blockdense import pad_x, padded_length
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published device-memory rate
+F32_FLOPS = 67e12              # H100 SXM, published f32 rate, CUDA cores
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_events(fn, match: str = ""):
+    """[(name, microseconds)] of the device kernels of one call of ``fn``
+    whose name contains ``match``, in launch order, as torch.profiler saw
+    them; [] if it saw none in two tries (now and then a trace comes back
+    without its kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evts = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and match in e.name),
+                      key=lambda e: e.time_range.start)
+        if evts:
+            return [(e.name, e.time_range.elapsed_us()) for e in evts]
+    return []
+
+
+def kernel_ms(fn, match: str):
+    """Milliseconds of the device kernels whose name contains ``match``
+    in one call of ``fn``; None if the profiler saw none (a time that
+    was not measured is not a zero)."""
+    evts = kernel_events(fn, match)
+    return sum(us for _, us in evts) / 1e3 if evts else None
+
+
+def bound(nbytes: int, flops: int):
+    """(milliseconds, "bytes" or "operations"): the least time the card
+    could take to move ``nbytes`` once and do ``flops`` f32 operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def matvec_bound(buckets, x, plan=None):
+    """Bound of one slab matvec over ``buckets``: (ms, bound_by, bytes).
+
+    Without ``plan`` (the block-window kernel, one launch per bucket,
+    which reads every block of a bucket): m, win_start and the padded x
+    read once, y written once, one multiply-add per entry of m.  With
+    the transposed-tile kernel's work table ``plan``: what that table
+    makes the kernel read and write (``plan_bytes``: a bucket's padding
+    blocks have no item and are not counted), one multiply-add per entry
+    of the tiles read."""
+    if plan is not None:
+        from gravomg_tpu_torch.ops.mxu_cuda import plan_bytes
+        pb = plan_bytes(buckets, plan)
+        ms, by = bound(pb["io"],
+                       2 * pb["tiles"] // buckets[0].m.element_size())
+        return ms, by, pb["io"]
+    nbytes = (sum(b.m.numel() * b.m.element_size()
+                  + b.win_start.numel() * b.win_start.element_size()
+                  for b in buckets)
+              + 4 * padded_length(buckets[0], x.shape[0])
+              + 4 * sum(b.m.shape[0] * b.block for b in buckets))
+    ms, by = bound(nbytes, 2 * sum(b.m.numel() for b in buckets))
+    return ms, by, nbytes
+
+
+def library_bmm(buckets, x):
+    """One ``torch.bmm`` per bucket on already gathered windows: the
+    library's time for the same products (f32 m only; the gather of x,
+    the escape chute and the un-permutation are not in it).  The port
+    never calls it.  Returns the function to time."""
+    x2 = pad_x(buckets[0], x).view(-1, 128)
+    pairs = []
+    for b in buckets:
+        nblk = b.m.shape[0]
+        wins = x2[b.win_start.long() // 128].reshape(nblk, -1)
+        if b.m.ndim == 4:       # transposed tiles: (1, L) @ (L, 128)
+            pairs.append((wins[:, None, :].contiguous(),
+                          b.m.reshape(nblk, -1, 128)))
+        else:                   # 8-row blocks: (8, L) @ (L, 1)
+            pairs.append((b.m, wins[:, :, None].contiguous()))
+
+    def run():
+        for left, right in pairs:
+            torch.bmm(left, right)
+    return run
+
+
+def bucket_loop(fn, buckets, x):
+    """One slab matvec's bucket calls of ``fn(bucket, x, xp)``, x padded
+    once per matvec as ``slab_matvec`` pads it.  Returns the function to
+    time."""
+    def run():
+        xp = pad_x(buckets[0], x)
+        for b in buckets:
+            fn(b, x, xp)
+    return run

@@ -32,7 +32,7 @@ def _load32(name, tmp_path):
                       else z[k]) for k in z.files}
     path = tmp_path / f"{name}_32.npz"
     np.savez(path, **arrays)
-    return jax_load_solver(str(path)), solver_from_numpy(arrays)
+    return jax_load_solver(str(path)), solver_from_numpy(arrays, device="cpu")
 
 
 def test_mg_pcg_f32_matches(tmp_path):

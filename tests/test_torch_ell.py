@@ -42,7 +42,7 @@ def _both(name, tmp_path, dtype):
                   for k in z.files}
     path = tmp_path / f"h_{np.dtype(dtype).name}.npz"
     np.savez(path, **arrays)
-    return jax_load_solver(str(path)), solver_from_numpy(arrays)
+    return jax_load_solver(str(path)), solver_from_numpy(arrays, device="cpu")
 
 
 def _close(got, want, dtype):
@@ -58,7 +58,7 @@ def _close(got, want, dtype):
 def test_load_solver_identical_arrays():
     for name in FIXTURES:
         hj = jax_load_solver(os.path.join(ASSETS, name))
-        ht = load_solver(os.path.join(ASSETS, name))
+        ht = load_solver(os.path.join(ASSETS, name), device="cpu")
         assert len(hj.levels) == len(ht.levels)
         np.testing.assert_array_equal(_np(ht.coarse_chol),
                                       _np(hj.coarse_chol))

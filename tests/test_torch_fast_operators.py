@@ -52,7 +52,7 @@ def test_fast_operators_match_jax():
     array (m, win_start, escape chute, geometry), as do the block_anchors
     of U and U^T, and each form's matvec agrees with JAX's."""
     hj = jv.attach_restrictions(jax_load_solver(HALO))
-    ht = gt.attach_restrictions(gt.load_solver(HALO))
+    ht = gt.attach_restrictions(gt.load_solver(HALO, device="cpu"))
     gj, gtt = {}, {}
     fj = jv.attach_fast_operators(hj, used_geometry=gj)
     ft = gt.attach_fast_operators(ht, used_geometry=gtt)
@@ -111,7 +111,7 @@ def test_mxu_path_solves_like_jax():
     hj = jv.attach_fast_operators(jv.attach_slab_operators(
         jv.attach_restrictions(jax_load_solver(HALO)), mxu=True))
     ht = gt.attach_fast_operators(gt.attach_slab_operators(
-        gt.load_solver(HALO), mxu=True))
+        gt.load_solver(HALO, device="cpu"), mxu=True))
     kinds = [[_kind(getattr(lvl, f)) for f in FIELDS] for lvl in ht.levels]
     assert kinds == [[_kind(getattr(lvl, f)) for f in FIELDS]
                      for lvl in hj.levels]

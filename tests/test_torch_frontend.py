@@ -50,7 +50,7 @@ def test_grid_knn_matches_jax():
     pts = pts[morton_order(pts)]
     gj, short = jax_knn(pts, 16, margin=2.4)
     assert not bool(short)
-    gtorch = gt.grid_knn_graph_nosync(pts, 16, margin=2.4)
+    gtorch = gt.grid_knn_graph_nosync(pts, 16, margin=2.4, device="cpu")
     nj, nt = np.asarray(gj.neighbors), gtorch.neighbors.numpy()
     dj, dt = np.asarray(gj.distances), gtorch.distances.numpy()
     assert nj.shape == nt.shape

@@ -52,7 +52,8 @@ def test_kernel_matches_twin_on_card(card):
     of each level of at least 512 rows), f32 and bf16 m; then each whole
     slab matvec on the card against the CPU."""
     hc = attach_slab_operators(load_solver(HALO, device=card), min_rows=512)
-    h_cpu = attach_slab_operators(load_solver(HALO), min_rows=512)
+    h_cpu = attach_slab_operators(load_solver(HALO, device="cpu"),
+                                  min_rows=512)
     slots = slab_slots(hc, 512)
     assert {f for _, f in slots} == {"banded", "uw", "utw"}
     assert all(getattr(hc.levels[li], f) is not None for li, f in slots)

@@ -38,7 +38,7 @@ def _np(a):
 @pytest.fixture(scope="module")
 def mxu_slabs():
     """The 24k fixture's level-0 A and U in the mxu form, both packages."""
-    hj, ht = jax_load_solver(HALO), load_solver(HALO)
+    hj, ht = jax_load_solver(HALO), load_solver(HALO, device="cpu")
     uj, ut = hj.levels[0].u, ht.levels[0].u
     return {
         "a": (jslab.slab_from_operator(hj.levels[0].op, escape_cap=65536,

@@ -28,7 +28,7 @@ def _graph():
     """The port's graph and the same tables as a JAX Graph."""
     pts = torus_points(3000, seed=1).astype(np.float32)
     pts = pts[morton_order(pts)]
-    gtorch = gt.grid_knn_graph_nosync(pts, 16, margin=2.4)
+    gtorch = gt.grid_knn_graph_nosync(pts, 16, margin=2.4, device="cpu")
     gj = JGraph(*(jnp.asarray(t.numpy()) for t in gtorch))
     return gtorch, gj
 

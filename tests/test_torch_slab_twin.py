@@ -32,7 +32,7 @@ HALO = os.path.join(os.path.dirname(__file__), "..", "assets",
 
 @pytest.fixture(scope="module")
 def halo_a0():
-    return slab_from_operator(load_solver(HALO).levels[0].op,
+    return slab_from_operator(load_solver(HALO, device="cpu").levels[0].op,
                               escape_cap=65536)
 
 

@@ -38,7 +38,8 @@ HALO = os.path.join(os.path.dirname(__file__), "..", "assets",
 def test_whole_slice_matches_jax(tmp_path):
     pts = torus_points(N, seed=1).astype(np.float32)
     pts = pts[morton_order(pts)]
-    graph = gt.grid_knn_graph_nosync(pts, 16, margin=2.4)
+    graph = gt.grid_knn_graph_nosync(pts, 16, margin=2.4,
+                                     device="cpu")
     op, _ = gt.screened_poisson_operator(graph, alpha="auto")
     cfg = gt.MultigridConfig(coarse_threshold=100, smoother="chebyshev")
     jcfg = g.MultigridConfig(coarse_threshold=100, smoother="chebyshev")
@@ -54,7 +55,7 @@ def test_whole_slice_matches_jax(tmp_path):
     for dtype in (np.float32, np.float64):
         arrays = {k: (v.astype(dtype) if v.dtype.kind == "f" else v)
                   for k, v in solver_to_numpy(hs).items()}
-        ht = gt.attach_slab_operators(solver_from_numpy(arrays),
+        ht = gt.attach_slab_operators(solver_from_numpy(arrays, device="cpu"),
                                       min_rows=512)
         path = str(tmp_path / f"solver_{np.dtype(dtype).name}.npz")
         save_solver(path, ht)
@@ -81,7 +82,7 @@ def test_unordered_level_keeps_ell_on_cpu():
     its matvec is the ELL one; attach_fast_operators then gives it the
     uniform block-dense form, whose matvec agrees with the ELL one at
     1e-6 * max|y| (another summation order)."""
-    h = gt.load_solver(HALO)
+    h = gt.load_solver(HALO, device="cpu")
     op = h.levels[0].op
     perm = torch.as_tensor(np.random.default_rng(3).permutation(
         op.num_vertices))

@@ -40,7 +40,7 @@ def _both64(name, tmp_path):
                       else z[k]) for k in z.files}
     path = tmp_path / f"{name}_64.npz"
     np.savez(path, **arrays)
-    return jax_load_solver(str(path)), solver_from_numpy(arrays)
+    return jax_load_solver(str(path)), solver_from_numpy(arrays, device="cpu")
 
 
 def _close(got, want, rtol):

@@ -32,7 +32,7 @@ def _load64(name, tmp_path):
                       else z[k]) for k in z.files}
     path = tmp_path / f"{name}_64.npz"
     np.savez(path, **arrays)
-    return jax_load_solver(str(path)), solver_from_numpy(arrays)
+    return jax_load_solver(str(path)), solver_from_numpy(arrays, device="cpu")
 
 
 def test_vcycle_and_trace_match_f64(tmp_path):

@@ -34,7 +34,7 @@ def _reference(x, starts, lidx, w):
 
 @pytest.mark.parametrize("name", ["P1", "P2"])
 def test_probe_matches_numpy_transcription(name):
-    x, starts, lidx, w = probe_inputs(V)
+    x, starts, lidx, w = probe_inputs(V, device="cpu")
     st = starts[name].numpy()
     assert x.shape == (V // B * B,) and lidx.shape == (V // B, B, K)
     # P1 shifts the starts back by WD/4; P2's run off the end of x.
