@@ -13,16 +13,23 @@ script exits nonzero:
      started together;
   3. setup at n = 1,000,000 (the bench's recipe): Morton-ordered torus,
      grid kNN (k=16), screened-Poisson operator (alpha="auto"), the
-     csrc-coarsened hierarchy (coarse_threshold=1000, Chebyshev) and its
-     slab forms; then the kernel against its plain twin on every bucket
-     of every slab form (A, U and U^T of each level), f32 and bf16 m,
-     at 1e-6 * max|y|;
+     hierarchy built on the card by ``build_hierarchy_device`` (random
+     priorities from a seeded generator; coarse_threshold=1000,
+     Chebyshev) with, per level, its sizes, triangles, prolongation case
+     counts, sampling rounds and seconds per stage, the build's peak
+     device memory, and the same build by ``build_hierarchy`` (the
+     reference's sampling, on the card) and by ``build_hierarchy_host``
+     (the C++ coarsener) for their seconds; the slab forms; then the
+     kernel against its plain twin on every bucket of every slab form
+     (A, U and U^T of each level), f32 and bf16 m, at 1e-6 * max|y|;
   4. fixture parity: assets/halo_hierarchy.npz on the card against the
      same fixture on the CPU (one V-cycle, and MG-PCG iterations);
   5. the main path at 1M: V-cycle time (CUDA events, median), MG-PCG
      and mg_solve (bf16-preconditioned flexible CG at this size) to
      1e-8, with the kernel's launch count over this phase; fails if a
-     level of at least 4096 rows lacks a slab form;
+     level of at least 4096 rows lacks a slab form; then the same two
+     solves on the greedy hierarchy of the C++ coarsener (iteration
+     counts within 2 of the main path's);
   6. timing: the kernel against its twin, per level-0 A matvec;
   7. profile: torch.profiler over one 1M V-cycle (device busy share, top
      device kernels), the level-0 A matvec as slab against the plain
@@ -30,7 +37,7 @@ script exits nonzero:
   8. the 1M level-0 A's window counts at 128-row blocks: the blocks that
      need more than 24 windows keep the transposed-tile (mxu) form off
      the 1M fine level, so its path runs at 200k;
-  9. the mxu path at n = 200,000 (the same recipe):
+  9. the mxu path at n = 200,000 (the same recipe, built on the card):
      ``attach_fast_operators(attach_slab_operators(h, mxu=True))``; each
      slot's form (MXU, uniform or ELL), its window count and m bytes,
      failing if a slab slot of at most 24 windows lacks its MXU form;
@@ -53,7 +60,16 @@ script exits nonzero:
      peak device memory;
  10. the gather probes (``gravomg_tpu_torch/probes/gather.py``) at
      V = 200,000 and 1,000,000: their kernel against its twin at
-     1e-6 * max|y|, bitwise repeatable, times, GB/s, bound and share.
+     1e-6 * max|y|, bitwise repeatable, times, GB/s, bound and share;
+ 11. the build against the C++ coarsener at 200k
+     (``gravomg_tpu_torch/probes/build_check.py``): ``build_hierarchy``
+     on the card in f64 (samples equal, parents equal up to ties,
+     adjacency equal, U rows at 1e-10, level sizes) and in f32 (each
+     level against the coarsener on that level's graph: sample flips
+     with their margin to the radius, U rows at 1e-5 with under 0.5%
+     flipped), with the case counts per level;
+ 12. the other solve loops at 200k, once each: ``fmg``,
+     ``solve_with_history`` (30 cycles) and ``solve_refined`` (to 1e-8).
 
 A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
@@ -147,26 +163,63 @@ def phase_build():
     return {"wall_s": wall, "build_s": secs}
 
 
-def build_problem(n, tag):
-    """The bench's recipe at ``n`` points on the card (no fast forms
-    yet), with its set-up times."""
+def build_problem(torch, n, tag):
+    """The bench's recipe at ``n`` points, hierarchy built on the card
+    (no fast forms yet), with its set-up times and the per-level table
+    of the build."""
+    from gravomg_tpu_torch.hierarchy import STAGES
     from gravomg_tpu_torch.probes.mxu_levels import bench_hierarchy
-    cfg, h, info = bench_hierarchy(n)
+    cfg, h, info, graph, op = bench_hierarchy(n)
     info["levels"] = [lvl.op.num_vertices for lvl in h.levels]
     print(f"[{tag}] setup n={n}: graph+operator {info['front_s']:.1f} s, "
-          f"hierarchy {info['hierarchy_s']:.1f} s; levels {info['levels']}")
-    return cfg, h, info
+          f"hierarchy on the card (build_hierarchy_device) "
+          f"{info['hierarchy_s']:.3f} s, peak device memory of the build "
+          f"{info['build_peak_bytes']} bytes; levels {info['levels']}")
+    for st, rec in zip(info["stats"], info["stages"]):
+        print(f"[{tag}]   {st['n_fine']} -> {st['n_coarse']} rows, "
+              f"{st['n_triangles']} triangles, cases hit/edge/point "
+              f"{st['triangle_hits']}/{st['edge_fallbacks']}/"
+              f"{st['point_fallbacks']}, {rec['sampling_rounds']} sampling "
+              f"rounds; s: " + ", ".join(f"{k} {rec[k]:.3f}" for k in STAGES))
+    return cfg, h, info, graph, op
 
 
 def phase_setup(torch):
     import gravomg_tpu_torch as gt
-    cfg, h, info = build_problem(N, "3")
+    from gravomg_tpu_torch.hierarchy import STAGES, build_hierarchy
+    cfg, h, info, graph, op = build_problem(torch, N, "3")
+    # The same build with the reference's sampling, on the card and by
+    # the C++ coarsener on the host.
+    rec = []
+    t0 = time.perf_counter()
+    build_hierarchy(graph, op, cfg, record=rec)
+    torch.cuda.synchronize()
+    info["exact_s"] = time.perf_counter() - t0
+    info["exact_rounds"] = [r["sampling_rounds"] for r in rec]
+    info["exact_sampling_s"] = [r["sampling"] for r in rec]
+    info["exact_stages"] = rec
+    t0 = time.perf_counter()
+    h_greedy = gt.build_hierarchy_host(graph, op, cfg)
+    torch.cuda.synchronize()
+    info["host_s"] = time.perf_counter() - t0
+    info["host_levels"] = [lvl.op.num_vertices for lvl in h_greedy.levels]
+    print(f"[3] build total: random priorities on the card "
+          f"{info['hierarchy_s']:.3f} s; the reference's sampling on the "
+          f"card {info['exact_s']:.3f} s (sampling rounds "
+          f"{info['exact_rounds']}, sampling s "
+          f"{[round(x, 3) for x in info['exact_sampling_s']]}); C++ "
+          f"coarsener on the host {info['host_s']:.3f} s (levels "
+          f"{info['host_levels']})")
+    # The second build of the process: its level-0 stages no longer hold
+    # what a library sets up at its first call.
+    print("[3] level-0 stage s of that second build (the reference's "
+          "sampling): " + ", ".join(f"{k} {rec[0][k]:.3f}" for k in STAGES))
     t0 = time.perf_counter()
     h = gt.attach_slab_operators(h)
     torch.cuda.synchronize()
     info["slab_s"] = time.perf_counter() - t0
     print(f"[3] slab forms {info['slab_s']:.1f} s")
-    return cfg, h, info
+    return cfg, h, h_greedy, info
 
 
 def _bucket_on(b, dtype):
@@ -310,7 +363,7 @@ def _cycle_account(torch, cfg, h, b, wrapper, tag, what):
     return seen
 
 
-def phase_main(torch, cfg, h):
+def phase_main(torch, cfg, h, h_greedy):
     import numpy as np
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_cuda
@@ -355,6 +408,17 @@ def phase_main(torch, cfg, h):
     if launches <= 0:
         raise AssertionError("the main path never launched the kernel")
     out.update(launches=launches, m_bytes=mb)
+    hg = gt.attach_slab_operators(h_greedy)
+    for name, solver in (("mg_pcg", gt.mg_pcg), ("mg_solve", gt.mg_solve)):
+        _, rel, it = solver(hg, b, cfg)
+        out[f"{name}_greedy"] = {"iters": it, "rel": rel}
+        print(f"[5] {name} on the greedy hierarchy of the C++ coarsener: "
+              f"{it} iterations, rel residual {rel:.3e} (random-priority "
+              f"hierarchy: {out[name]['iters']})")
+        if not (rel <= 1e-8 and abs(it - out[name]["iters"]) <= 2):
+            raise AssertionError(f"{name}: {out[name]['iters']} iterations "
+                                 f"on the random-priority hierarchy, {it} "
+                                 f"(rel {rel}) on the greedy one")
     return out
 
 
@@ -524,7 +588,7 @@ def phase_mxu_setup(torch):
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.slab import NW_MAX, slab_from_operator
     from gravomg_tpu_torch.solve.vcycle import slab_slots
-    cfg, h, info = build_problem(N_MXU, "9")
+    cfg, h, info, graph, op = build_problem(torch, N_MXU, "9")
     t0 = time.perf_counter()
     hm = gt.attach_fast_operators(gt.attach_slab_operators(h, mxu=True))
     torch.cuda.synchronize()
@@ -538,14 +602,14 @@ def phase_mxu_setup(torch):
         for field, label in FIELDS:
             if (li == last) if field == "banded" else lvl.u is None:
                 continue
-            op = getattr(lvl, field)
+            form = getattr(lvl, field)
             mx = int(_window_counts(lvl, field).max())
-            kind = _fast_kind(op)
+            kind = _fast_kind(form)
             rows.append({"slot": f"L{li} {label}", "form": kind,
-                         "max_windows": mx, "m_bytes": _m_bytes(op),
+                         "max_windows": mx, "m_bytes": _m_bytes(form),
                          "slab_slot": (li, field) in slots})
             print(f"[9] L{li} {label:3s} form {kind:7s} max windows at "
-                  f"128-row blocks {mx:2d}, m bytes {_m_bytes(op)}"
+                  f"128-row blocks {mx:2d}, m bytes {_m_bytes(form)}"
                   + ("" if (li, field) in slots else " (below 4096 rows)"))
             if (li, field) in slots and mx <= NW_MAX and kind != "MXU":
                 bad.append(f"L{li} {label}")
@@ -555,7 +619,7 @@ def phase_mxu_setup(torch):
         raise AssertionError(f"slab slots of at most {NW_MAX} windows "
                              f"without their MXU form: {bad}")
     info["slots"] = rows
-    return cfg, hm, a0_vpu, info
+    return cfg, hm, a0_vpu, info, graph, op
 
 
 def _to_device(torch, obj, dev):
@@ -803,6 +867,69 @@ def phase_gather():
     return out
 
 
+def phase_build_check(graph, op, cfg):
+    """``build_hierarchy`` on the card against the C++ coarsener at
+    200k, f64 and f32 (probes/build_check.py raises on a mismatch)."""
+    from gravomg_tpu_torch.probes.build_check import check_build
+    out = check_build(graph, op, cfg)
+    for name, rec in out.items():
+        host = (f", C++ coarsener {rec['host_build_s']:.3f} s, levels "
+                f"{rec['host_levels']}" if "host_build_s" in rec else "")
+        print(f"[11] {name}: build_hierarchy on the card "
+              f"{rec['build_s']:.3f} s, levels {rec['levels']}{host}")
+        for st, cmp_ in zip(rec["stats"], rec["compare"]):
+            cases = (f"cases hit/edge/point {st['triangle_hits']}/"
+                     f"{st['edge_fallbacks']}/{st['point_fallbacks']}")
+            if cmp_["samples_differ"]:
+                print(f"[11]   {st['n_fine']} -> {st['n_coarse']} (C++ "
+                      f"{cmp_['host_n_coarse']}): {cmp_['samples_differ']} "
+                      f"samples differ, the first with margin "
+                      f"{cmp_['first_margin']:.3e} to the radius; {cases}")
+                continue
+            print(f"[11]   {st['n_fine']} -> {st['n_coarse']}: samples "
+                  f"equal; parents differ {cmp_['parents_differ']} (not "
+                  f"ties {cmp_['parents_not_ties']}); adjacency rows differ "
+                  f"{cmp_['adjacency_rows_differ']}; coarse points moved "
+                  f"{cmp_['coarse_points_moved']}; U rows max|dw| "
+                  f"{cmp_['u_max_err']:.3e}, flipped "
+                  f"{cmp_['u_rows_flipped']}, beyond tolerance "
+                  f"{cmp_['u_rows_beyond']}; {cases}")
+    return out
+
+
+def phase_solve_loops(torch, cfg, hm):
+    """``fmg``, ``solve_with_history`` and ``solve_refined`` once each
+    on the 200k hierarchy."""
+    import dataclasses
+    import numpy as np
+    from gravomg_tpu_torch.solve.vcycle import (fmg, level_matvec,
+                                                solve_refined,
+                                                solve_with_history)
+    b = torch.as_tensor(np.random.default_rng(0).normal(size=N_MXU)
+                        .astype(np.float32), device="cuda")
+    x = fmg(hm, b, cfg)
+    rel_fmg = float((b - level_matvec(hm.levels[0], x)).norm() / b.norm())
+    cfg30 = dataclasses.replace(cfg, max_cycles=30)
+    _, rel_h, it_h, hist = solve_with_history(hm, b, cfg30)
+    hist = hist.tolist()
+    t0 = time.perf_counter()
+    x64, rel_r, it_r = solve_refined(hm, b, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[12] fmg: rel residual {rel_fmg:.3e} after one pass; "
+          f"solve_with_history: {it_h} cycles to {rel_h:.3e}, first five "
+          f"{[f'{v:.2e}' for v in hist[:5]]}; solve_refined: {it_r} outer "
+          f"iterations to {rel_r:.3e}, {wall:.3f} s")
+    ok = (rel_fmg < 0.5 and abs(hist[it_h - 1] - rel_h) <= 1e-6 * rel_h
+          and rel_h < hist[0]
+          and rel_r <= 1e-8 and x64.dtype == torch.float64
+          and bool(torch.isfinite(x64).all()))
+    if not ok:
+        raise AssertionError("a solve loop failed at 200k")
+    return {"fmg_rel": rel_fmg, "history": hist[:it_h],
+            "refined": {"iters": it_r, "rel": rel_r, "wall_s": wall}}
+
+
 def main() -> int:
     try:
         import torch
@@ -824,10 +951,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     report = {"env": phase_environment(torch), "build": phase_build()}
-    cfg, h, report["setup"] = phase_setup(torch)
+    cfg, h, h_greedy, report["setup"] = phase_setup(torch)
     report["kernel_check"] = phase_kernel_check(torch, h)
     report["fixture"] = phase_fixture(torch)
-    report["main"] = phase_main(torch, cfg, h)
+    report["main"] = phase_main(torch, cfg, h, h_greedy)
+    del h_greedy
     report["timing"] = phase_timing(torch, h)
     report["profile"] = phase_profile(torch, cfg, h,
                                       report["main"]["vcycle_ms"])
@@ -838,7 +966,7 @@ def main() -> int:
 
     from gravomg_tpu_torch.ops.mxu_cuda import (bucket_plan, mxu_matvec_cuda,
                                                 mxu_matvec_plain)
-    cfg, hm, a0_vpu, report["mxu_setup"] = phase_mxu_setup(torch)
+    cfg, hm, a0_vpu, report["mxu_setup"], graph, op = phase_mxu_setup(torch)
     report["mxu_check"] = _check_buckets(
         torch, _slabs(hm, mxu=True),
         lambda b, x, xp: mxu_matvec_cuda(b, x, xp, bucket_plan(b)),
@@ -853,6 +981,9 @@ def main() -> int:
     del a0_vpu
     report["fcg_order"] = phase_fcg_order(torch, cfg, hm)
     report["gather"] = phase_gather()
+    report["build_check"] = phase_build_check(graph, op, cfg)
+    del graph, op
+    report["solve_loops"] = phase_solve_loops(torch, cfg, hm)
     # The CPU copy's solves come last: after half a minute of them
     # torch.profiler reports no device kernel any more in this process,
     # and the timing phases read the kernels' own times from it.

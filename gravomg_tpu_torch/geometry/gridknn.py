@@ -1,10 +1,12 @@
 """Spatial-hash kNN for large point clouds (counterpart of
-``gravomg_tpu/geometry/gridknn.py::grid_knn_graph_nosync``).
+``gravomg_tpu/geometry/gridknn.py``).
 
 Points are binned into a uniform grid by one sort; each point gathers
 the candidates of its 3x3x3 cell neighbourhood and keeps the k nearest
 (``torch.topk``), chunk by chunk.  The grid is sized on the host from a
-query subsample exactly as in the JAX package.
+query subsample exactly as in the JAX package
+(:func:`grid_knn_graph_nosync`), or from the bounding box's density with
+retries on a shortfall (:func:`grid_knn_graph`).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gravomg_tpu_torch.geometry.knn import knn_graph, symmetrized_knn_graph
 from gravomg_tpu_torch.ops.segment import build_ell_rows
 from gravomg_tpu_torch.types import INVALID_INDEX, Graph
 from gravomg_tpu_torch.utils.device import resolve_device
@@ -134,3 +137,47 @@ def grid_knn_graph_nosync(points_np: np.ndarray, k: int,
     dist = torch.linalg.norm(points[:, None, :] - points[safe], dim=-1)
     dist = torch.where(mask, dist, torch.full_like(dist, float("inf")))
     return Graph(res.columns, dist, points)
+
+
+def grid_knn_graph(points: torch.Tensor, k: int,
+                   max_degree: int | None = None,
+                   target_per_cell: float = 3.0) -> Graph:
+    """Symmetrised kNN graph by spatial hashing, on the points' device;
+    the brute-force :func:`~gravomg_tpu_torch.geometry.knn.knn_graph`
+    for clouds of at most 20,000 points.  Same output contract as
+    ``knn_graph``.  The cell edge starts at about 1.5x the kth-neighbour
+    distance a uniform surface cloud of this density would have, grows
+    1.5x while some point's k nearest are not certified by its 27-cell
+    window, and shrinks while a cell holds too many candidates; after 12
+    attempts the brute-force path takes over."""
+    v = points.shape[0]
+    if v <= 20000:
+        return knn_graph(points, k, max_degree=max_degree)
+    pts_np = points.cpu().numpy()
+    lo = pts_np.min(axis=0)
+    extent = float((pts_np.max(axis=0) - lo).max()) + 1e-12
+    area_density = v / (extent * extent)
+    edge = float(1.5 * np.sqrt(max(k, 9) / (np.pi * area_density))
+                 / max(target_per_cell / 3.0, 1e-6) ** 0.5)
+    origin = torch.as_tensor(lo, dtype=points.dtype, device=points.device)
+    for _ in range(12):
+        grid_dim = 1 << max(1, int(np.ceil(extent / edge)) + 1).bit_length()
+        grid_dim = max(2, min(512, grid_dim))
+        if grid_dim * edge < extent:
+            edge = extent / grid_dim * 1.0001
+        coords = np.clip(((pts_np - lo) / edge).astype(np.int64),
+                         0, grid_dim - 1)
+        cid = (coords[:, 0] * grid_dim + coords[:, 1]) * grid_dim \
+            + coords[:, 2]
+        cap = int(np.bincount(cid, minlength=grid_dim ** 3).max())
+        if cap * 27 * 8 > 64 * 1024:   # keep the candidate tensors sane
+            edge *= 0.7
+            continue
+        cap = ((cap + 15) // 16) * 16
+        chunk = max(1, min(v, _CHUNK_BYTES // (27 * cap * 32)))
+        idx, short = _grid_knn_indices(points, k, edge, origin, grid_dim,
+                                       cap, chunk)
+        if not short:
+            return symmetrized_knn_graph(points, idx, max_degree)
+        edge *= 1.5
+    return knn_graph(points, k, max_degree=max_degree)

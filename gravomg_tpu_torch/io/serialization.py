@@ -6,6 +6,11 @@ Per level ``l{i}_nbr``, ``l{i}_off``, ``l{i}_diag`` (ELL operator),
 ``l{i}_ucols``, ``l{i}_uw``, ``l{i}_unc`` (prolongation, all but the
 coarsest level), ``l{i}_cheb`` (Chebyshev bounds, if any); plus
 ``n_levels`` and ``coarse_chol``.
+
+The build's inputs and outputs cross as numpy arrays too:
+:func:`graph_from_numpy` makes a graph from ELL tables, and
+:func:`level_to_numpy` / :func:`hierarchy_to_numpy` give back what each
+coarsening step made.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from gravomg_tpu_torch.solve.smoothers import ChebyshevParams
 from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy, SolverLevel,
                                             attach_restrictions)
-from gravomg_tpu_torch.types import EllOperator, Prolongation
+from gravomg_tpu_torch.types import EllOperator, Graph, Prolongation
 from gravomg_tpu_torch.utils.device import resolve_device
 
 
@@ -77,3 +82,40 @@ def load_solver(path: str, device=None) -> SolverHierarchy:
     device = resolve_device(device)
     with np.load(path) as z:
         return solver_from_numpy(z, device=device)
+
+
+def graph_from_numpy(neighbors: np.ndarray, distances: np.ndarray,
+                     points: np.ndarray, device=None) -> Graph:
+    """A graph on ``device`` (the card unless the caller names another)
+    from its ELL tables: neighbours (V, K) integer with INVALID_INDEX
+    padding, distances (V, K) and points (V, 3) of one float dtype."""
+    device = resolve_device(device)
+    return Graph(
+        neighbors=torch.as_tensor(np.array(neighbors, np.int32),
+                                  device=device),
+        distances=torch.as_tensor(np.array(distances), device=device),
+        points=torch.as_tensor(np.array(points), device=device))
+
+
+def level_to_numpy(level) -> dict:
+    """What one coarsening step made (a ``hierarchy.LevelData``), as
+    numpy arrays: samples, parents, the coarse graph's neighbours and
+    points, the triangles with their normals and association lists, and
+    U's columns and weights."""
+    def n(t):
+        return t.cpu().numpy()
+
+    return {"samples": n(level.samples), "parents": n(level.parents),
+            "coarse_neighbors": n(level.coarse.neighbors),
+            "coarse_points": n(level.coarse.points),
+            "triangles": n(level.triangles.vertices),
+            "normals": n(level.triangles.normals),
+            "assoc": n(level.triangles.assoc),
+            "assoc_rot": n(level.triangles.assoc_rot),
+            "u_cols": n(level.u.cols), "u_weights": n(level.u.weights)}
+
+
+def hierarchy_to_numpy(hierarchy) -> list:
+    """:func:`level_to_numpy` of every level of a
+    ``hierarchy.Hierarchy``, finest first."""
+    return [level_to_numpy(level) for level in hierarchy.levels]

@@ -3,7 +3,7 @@
     python -m gravomg_tpu_torch.probes.mxu_levels [N]   # N = 200000 by default
 
 Builds the bench's recipe at N points (Morton-ordered torus, grid kNN,
-screened Poisson, csrc-coarsened hierarchy), attaches the transposed-tile
+screened Poisson, the hierarchy built on the card), attaches the transposed-tile
 (mxu) slab forms, and for every such form (A and U of each level), with
 f32 and bf16 m, prints one JSON line (:func:`measure_form`): the time of
 the one-launch wrapper per call (CUDA events, median of 10, from an idle
@@ -35,23 +35,42 @@ from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
                                              matvec_bound)
 
 
-def bench_hierarchy(n: int):
-    """The bench's recipe at ``n`` points on the card: Morton-ordered
-    torus, grid kNN, screened Poisson, the csrc-coarsened hierarchy (no
-    fast forms yet).  Returns (config, hierarchy, seconds of the front
-    end and of the hierarchy build)."""
+BUILD_SEED = 0      # of the generator the sampling priorities come from
+
+
+def bench_problem(n: int):
+    """The bench's problem at ``n`` points on the card: Morton-ordered
+    torus, grid kNN, screened Poisson.  Returns (config, graph, operator,
+    seconds)."""
     t0 = time.perf_counter()
     pts = torus_points(n, seed=1).astype(np.float32)
     pts = pts[morton_order(pts)]
     graph = gt.grid_knn_graph_nosync(pts, 16, margin=2.4)
     op, _ = gt.screened_poisson_operator(graph, alpha="auto")
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
     cfg = gt.MultigridConfig(coarse_threshold=1000, smoother="chebyshev")
-    h = gt.build_hierarchy_host(graph, op, cfg)
+    return cfg, graph, op, time.perf_counter() - t0
+
+
+def bench_hierarchy(n: int):
+    """The bench's recipe at ``n`` points on the card, the hierarchy
+    built there by ``build_hierarchy_device`` with random priorities
+    from a generator seeded with ``BUILD_SEED`` (no fast forms yet).
+    Returns (config, solver hierarchy, {seconds of the front end and of
+    the hierarchy build, per-level stage seconds and statistics, peak
+    device memory of the build}, graph, operator)."""
+    cfg, graph, op, front_s = bench_problem(n)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(BUILD_SEED)
+    record = []
+    t1 = time.perf_counter()
+    h, stats = gt.build_hierarchy_device(graph, op, cfg, generator=gen,
+                                         record=record)
     torch.cuda.synchronize()
-    return cfg, h, {"front_s": t1 - t0,
-                    "hierarchy_s": time.perf_counter() - t1}
+    return cfg, h.solver, {
+        "front_s": front_s, "hierarchy_s": time.perf_counter() - t1,
+        "build_peak_bytes": torch.cuda.max_memory_allocated(),
+        "stages": record, "stats": [s._asdict() for s in stats]}, graph, op
 
 
 def slab_forms(h, mxu: bool):
@@ -105,7 +124,7 @@ def main(argv) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     n = int(argv[1]) if len(argv) > 1 else 200_000
-    _, h, _ = bench_hierarchy(n)
+    _, h, _, _, _ = bench_hierarchy(n)
     h = gt.attach_slab_operators(h, mxu=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, sop in slab_forms(h, mxu=True):

@@ -37,6 +37,30 @@ def weighted_jacobi(op: EllOperator, x: torch.Tensor, b: torch.Tensor,
     return x
 
 
+def estimate_lambda_max(op: EllOperator, iterations: int = 30,
+                        x0: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """Power iteration on D^{-1} A, for scaling the Chebyshev interval
+    at set-up.  Starts from ``x0``, or from a standard normal vector
+    drawn from ``generator`` (seed 0 if None).  Returns the Rayleigh
+    quotient as a 0-d tensor."""
+    dinv = 1.0 / op.diag
+    if x0 is None:
+        dev = op.diag.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        x0 = torch.randn(op.num_vertices, dtype=op.diag.dtype,
+                         generator=generator,
+                         device=generator.device).to(dev)
+    x = x0
+    for _ in range(iterations):
+        y = dinv * spmv(op, x)
+        x = y / torch.linalg.norm(y).clamp(min=1e-30)
+    y = dinv * spmv(op, x)
+    return torch.dot(x, y) / torch.dot(x, x).clamp(min=1e-30)
+
+
 def gershgorin_lambda_max(op: EllOperator) -> torch.Tensor:
     """Gershgorin upper bound on lambda_max(D^{-1} A): one row-sum pass,
     max_i (1 + sum_j |a_ij| / a_ii) over rows with a positive diagonal."""

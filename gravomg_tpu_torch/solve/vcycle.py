@@ -139,6 +139,73 @@ def solve(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
     return x, rel, it
 
 
+def fmg(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
+        cycles_per_level: int = 1) -> torch.Tensor:
+    """Full multigrid (F-cycle): b restricted down the hierarchy, an
+    exact solve on the coarsest level, then prolongation alternating
+    with ``cycles_per_level`` gamma-cycles at every level on the way up.
+    One pass costs about two V-cycles; its result is a first guess for
+    :func:`solve` or the Krylov solvers."""
+    one_d = b.ndim == 1
+    bs = [b]
+    for level in h.levels[:-1]:
+        bs.append(_restrict_level(level, bs[-1], one_d))
+    x = coarse_solve(h.coarse_chol, bs[-1])
+    for lvl in range(len(h.levels) - 2, -1, -1):
+        x = _prolong_level(h.levels[lvl], x, one_d)
+        for _ in range(cycles_per_level):
+            x = _descend(h, lvl, x, bs[lvl], cfg, one_d)
+    return x
+
+
+def solve_with_history(h: SolverHierarchy, b: torch.Tensor,
+                       cfg: MultigridConfig):
+    """:func:`solve` from a zero guess, also returning the relative
+    residual after each cycle: a (cfg.max_cycles,) tensor of b's dtype,
+    +inf beyond the last cycle run.  Returns (x, relative_residual,
+    iterations, history)."""
+    bnorm = max(float(torch.linalg.norm(b)), 1e-30)
+    hist = torch.full((cfg.max_cycles,), float("inf"), dtype=b.dtype,
+                      device=b.device)
+    x = torch.zeros_like(b)
+    rel = float(torch.linalg.norm(b)) / bnorm
+    it = 0
+    while rel > cfg.tolerance and it < cfg.max_cycles:
+        x = v_cycle(h, x, b, cfg)
+        rel = float(torch.linalg.norm(
+            b - level_matvec(h.levels[0], x))) / bnorm
+        hist[it] = rel
+        it += 1
+    return x, rel, it, hist
+
+
+def solve_refined(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
+                  inner_cycles: int = 2):
+    """Mixed-precision solve (iterative refinement): the residual
+    r = b - A x and the solution accumulate in f64 around corrections of
+    ``inner_cycles`` V-cycles in the hierarchy's own precision.  Reaches
+    a 1e-8 relative residual where the f32 stationary :func:`solve`
+    stalls.  Returns (x (f64), relative_residual, outer_iterations)."""
+    if inner_cycles < 1:
+        raise ValueError(f"inner_cycles must be at least 1, got "
+                         f"{inner_cycles}")
+    a0 = h.levels[0].op
+    a0_64 = EllOperator(a0.neighbors, a0.offdiag.double(), a0.diag.double())
+    b64 = b.double()
+    bnorm = max(float(torch.linalg.norm(b64)), 1e-300)
+    x = torch.zeros_like(b64)
+    rel, it = float("inf"), 0
+    while rel > cfg.tolerance and it < cfg.max_cycles:
+        r = (b64 - spmv(a0_64, x)).to(a0.diag.dtype)
+        d = v_cycle(h, torch.zeros_like(r), r, cfg, x0_zero=True)
+        for _ in range(inner_cycles - 1):
+            d = v_cycle(h, d, r, cfg)
+        x = x + d.double()
+        rel = float(torch.linalg.norm(b64 - spmv(a0_64, x))) / bnorm
+        it += 1
+    return x, rel, it
+
+
 def attach_restrictions(h: SolverHierarchy,
                         max_children: Optional[int] = None
                         ) -> SolverHierarchy:

@@ -40,8 +40,19 @@ class Graph(NamedTuple):
     points: torch.Tensor
 
     @property
+    def num_vertices(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.neighbors.shape[1]
+
+    @property
     def mask(self) -> torch.Tensor:
         return self.neighbors != INVALID_INDEX
+
+    def safe_neighbors(self) -> torch.Tensor:
+        return safe_gather_index(self.neighbors)
 
 
 class Prolongation(NamedTuple):
@@ -103,6 +114,10 @@ class EllOperator(NamedTuple):
         return self.diag.shape[0]
 
     @property
+    def max_degree(self) -> int:
+        return self.neighbors.shape[1]
+
+    @property
     def mask(self) -> torch.Tensor:
         return self.neighbors != INVALID_INDEX
 
@@ -122,3 +137,48 @@ class EllOperator(NamedTuple):
                       self.safe_neighbors().reshape(-1).long()),
                      vals.reshape(-1), accumulate=True)
         return a + torch.diag(self.diag)
+
+
+class TriangleSet(NamedTuple):
+    """All triangles of a coarse graph and per-vertex association lists.
+
+    Triangles are enumerated in lexicographic (v0 < v1 < v2) order, so
+    triangle ids and the order of the association lists are those of the
+    reference's nested loops, which the prolongation's first-hit
+    tie-break depends on.
+
+    vertices:  (T, 3) int32, each row ascending.
+    normals:   (T, 3) float, normalize((p1 - p0) x (p2 - p0)).
+    assoc:     (C, A) int32 triangle ids incident to each vertex,
+               ascending; INVALID_INDEX padding.
+    assoc_rot: (C, A) int32 in {0, 1, 2}: the slot of
+               ``vertices[assoc[c, a]]`` that equals c; 0 in padding.
+    """
+
+    vertices: torch.Tensor
+    normals: torch.Tensor
+    assoc: torch.Tensor
+    assoc_rot: torch.Tensor
+
+    @property
+    def num_triangles(self) -> int:
+        return self.vertices.shape[0]
+
+    @property
+    def assoc_mask(self) -> torch.Tensor:
+        return self.assoc != INVALID_INDEX
+
+
+class HierarchyStats(NamedTuple):
+    """Per-level record of one coarsening step, as host numbers: the
+    sizes, the triangle count, how many fine rows took each prolongation
+    case (of the rows whose parent has two or more coarse neighbours)
+    and the sampling radius."""
+
+    n_fine: int
+    n_coarse: int
+    n_triangles: int
+    triangle_hits: int
+    edge_fallbacks: int
+    point_fallbacks: int
+    radius: float

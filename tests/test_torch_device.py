@@ -50,6 +50,11 @@ def test_explicit_cpu_is_honoured():
     graph = gt.grid_knn_graph_nosync(_points(), 8, margin=2.4, device="cpu")
     assert graph.neighbors.device.type == "cpu"
     assert graph.points.device.type == "cpu"
+    again = gt.graph_from_numpy(graph.neighbors.numpy(),
+                                graph.distances.numpy(),
+                                graph.points.numpy(), device="cpu")
+    assert all(t.device.type == "cpu" for t in again)
+    assert torch.equal(again.neighbors, graph.neighbors)
     x, starts, lidx, w = probe_inputs(16_384, device="cpu")
     assert {t.device.type for t in (x, lidx, w, *starts.values())} == {"cpu"}
 
@@ -67,6 +72,9 @@ def test_default_is_the_card_and_raises_without_one():
         "grid_knn_graph_nosync": lambda: gt.grid_knn_graph_nosync(
             _points(), 8, margin=2.4),
         "probe_inputs": lambda: probe_inputs(16_384),
+        "graph_from_numpy": lambda: gt.graph_from_numpy(
+            np.zeros((4, 2), np.int32), np.ones((4, 2), np.float32),
+            np.zeros((4, 3), np.float32)),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match='device="cpu"'):
