@@ -69,7 +69,30 @@ script exits nonzero:
      with their margin to the radius, U rows at 1e-5 with under 0.5%
      flipped), with the case counts per level;
  12. the other solve loops at 200k, once each: ``fmg``,
-     ``solve_with_history`` (30 cycles) and ``solve_refined`` (to 1e-8).
+     ``solve_with_history`` (30 cycles) and ``solve_refined`` (to 1e-8);
+ 13. the apps at 1M on phase 3's hierarchy and graph (run after phase
+     8): ``heat_geodesics`` from vertex 0 (seconds of each refit,
+     iterations, residual and seconds of both MG-PCG solves, each to
+     1e-8, and the block-window kernel's launches over the phase, which
+     the refit's kept U and U^T forms make; phi finite, phi[0] = 0, the
+     mean of phi over bins of distance from the source rising over the
+     first half of the distance range), then one ``implicit_smooth`` step
+     (a (V, 3) stationary solve on the ELL path, at most
+     ``SMOOTH_MAX_CYCLES`` cycles; cycles, residual, seconds; finite);
+ 14. MG-preconditioned LOBPCG at 100k, the c6 recipe of
+     scripts/bench_configs.py (torus seed 6, grid kNN k=12,
+     coarse_threshold=800, Chebyshev, alpha = ``spectral_alpha``, the
+     hierarchy built on the card, no fast forms): ``laplace_eigs`` k=12,
+     40 iterations, tol 1e-5, with iterations, seconds in all and per
+     iteration (device block; Rayleigh-Ritz solve in f64 on the host,
+     transfers included), lam_0, lam_1, lam_11, max_resnorm against the
+     c6 target 1e-2, max|X^T M X - I| and the peak device memory of the
+     eigensolve above what the process held before it; the values
+     finite and ascending, max|X^T M X - I| <= 1e-4, |lam_0| <= 1e-3 *
+     lam_11.
+
+Phases 13 and 14 are functions of (torch, device, n, ...) that also run
+on the CPU at a small n (tests/test_torch_smoke_phases.py).
 
 A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
@@ -95,6 +118,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N = 1_000_000
 N_MXU = 200_000            # the mxu path's size (phase 8 says why)
 TOL_KERNEL = 1e-6          # max|kernel - twin| / max|twin|
+N_LOBPCG = 100_000         # phase 14, the c6 recipe's size
+# Phase 13's implicit_smooth: f32 stationary cycles end near the f32
+# floor of M + tL's residual, eps |tL| |x| / |b|, which grows like 1/h
+# and lies far above 1e-8 at 1M; the default 200 cycles would all run.
+SMOOTH_MAX_CYCLES = 20
 FIELDS = (("banded", "A"), ("uw", "U"), ("utw", "U^T"))
 
 
@@ -219,7 +247,7 @@ def phase_setup(torch):
     torch.cuda.synchronize()
     info["slab_s"] = time.perf_counter() - t0
     print(f"[3] slab forms {info['slab_s']:.1f} s")
-    return cfg, h, h_greedy, info
+    return cfg, h, h_greedy, info, graph
 
 
 def _bucket_on(b, dtype):
@@ -930,6 +958,164 @@ def phase_solve_loops(torch, cfg, hm):
             "refined": {"iters": it_r, "rel": rel_r, "wall_s": wall}}
 
 
+def _rising_bins(phi, dist, bins: int = 16):
+    """Mean of ``phi`` over each of the first half of ``bins`` bins of
+    ``dist`` over [0, max] (numpy arrays; empty bins left out), and
+    whether those means rise strictly."""
+    import numpy as np
+    idx = np.minimum((dist / dist.max() * bins).astype(np.int64), bins - 1)
+    counts = np.bincount(idx, minlength=bins)[:bins // 2]
+    sums = np.bincount(idx, weights=phi, minlength=bins)[:bins // 2]
+    means = [float(v) for v in sums[counts > 0] / counts[counts > 0]]
+    return means, all(b > a for a, b in zip(means, means[1:]))
+
+
+def phase_apps(torch, device, n, problem=None):
+    """Phase 13: ``heat_geodesics`` from vertex 0 and one
+    ``implicit_smooth`` step on the bench recipe's hierarchy with slab
+    forms at ``n`` points on ``device``; ``problem`` is (config, solver
+    hierarchy, graph) of phase 3, else the recipe is built here.  On the
+    card the block-window kernel's launches over the phase must be
+    above 0."""
+    import dataclasses
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_cuda
+    from gravomg_tpu_torch.utils.stage import synchronize
+    dev = torch.device(device)
+    if problem is None:
+        from gravomg_tpu_torch.probes.mxu_levels import bench_hierarchy
+        cfg, h, _, graph, _ = bench_hierarchy(n, device)
+        h = gt.attach_slab_operators(h)
+    else:
+        cfg, h, graph = problem
+    out = {"n": graph.num_vertices}
+    blockdense_matvec_cuda.launches = 0
+    heat = out["heat"] = {}
+    synchronize(dev)
+    t0 = time.perf_counter()
+    phi = gt.heat_geodesics(graph, h, 0, cfg=cfg, record=heat)
+    synchronize(dev)
+    heat["total_s"] = time.perf_counter() - t0
+    heat["k1_launches"] = blockdense_matvec_cuda.launches
+    for name in ("heat", "poisson"):
+        print(f"[13] heat_geodesics {name} step: refit "
+              f"{heat[f'refit_{name}_s']:.3f} s, MG-PCG "
+              f"{heat[f'{name}_iters']} iterations to "
+              f"{heat[f'{name}_rel']:.3e} in {heat[f'{name}_s']:.3f} s")
+    pts = graph.points.double()
+    dist = torch.linalg.norm(pts - pts[0], dim=1).cpu().numpy()
+    phi_np = phi.double().cpu().numpy()
+    means, rising = _rising_bins(phi_np, dist)
+    finite = bool(torch.isfinite(phi).all())
+    heat.update(bin_means=means, rising=rising, finite=finite,
+                phi0=float(phi_np[0]), phi_max=float(phi_np.max()))
+    print(f"[13] heat_geodesics {heat['total_s']:.3f} s in all; block-window "
+          f"kernel launches {heat['k1_launches']}; phi finite {finite}, "
+          f"phi[0] {heat['phi0']}, max {heat['phi_max']:.4g}; mean phi over "
+          f"the first 8 of 16 bins of distance from the source "
+          f"{[round(m, 4) for m in means]}")
+    if not (finite and heat["phi0"] == 0.0 and rising
+            and heat["heat_rel"] <= 1e-8 and heat["poisson_rel"] <= 1e-8):
+        raise AssertionError(f"heat_geodesics failed its checks: {heat}")
+
+    smooth = out["smooth"] = {}
+    scfg = dataclasses.replace(cfg, max_cycles=SMOOTH_MAX_CYCLES)
+    t0 = time.perf_counter()
+    new = gt.implicit_smooth(graph, h, steps=1, cfg=scfg, record=smooth)
+    synchronize(dev)
+    smooth["total_s"] = time.perf_counter() - t0
+    step = smooth["steps"][0]
+    finite = bool(torch.isfinite(new).all()) and new.shape == pts.shape
+    moved = float((new.double() - pts).norm(dim=1).mean())
+    smooth.update(finite=finite, mean_move=moved)
+    out["k1_launches"] = blockdense_matvec_cuda.launches
+    print(f"[13] implicit_smooth, one step (a (V, 3) solve, at most "
+          f"{SMOOTH_MAX_CYCLES} cycles): refit {smooth['refit_s']:.3f} s, "
+          f"{step['cycles']} cycles to {step['rel']:.3e} in "
+          f"{step['solve_s']:.3f} s; {smooth['total_s']:.3f} s in all; "
+          f"finite {finite}, mean move {moved:.3e}")
+    print(f"[13] block-window kernel launches over the phase: "
+          f"{out['k1_launches']}")
+    if not finite:
+        raise AssertionError("implicit_smooth returned non-finite points")
+    if dev.type == "cuda" and out["k1_launches"] <= 0:
+        raise AssertionError("the apps never launched the block-window "
+                             "kernel")
+    return out
+
+
+def phase_lobpcg(torch, device, n):
+    """Phase 14: ``laplace_eigs`` (k=12, 40 iterations, tol 1e-5) at
+    ``n`` points on ``device``, the c6 recipe of
+    scripts/bench_configs.py."""
+    import numpy as np
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.apps.spectral import spectral_alpha
+    from gravomg_tpu_torch.geometry.meshes import torus_points
+    from gravomg_tpu_torch.geometry.order import morton_order
+    from gravomg_tpu_torch.utils.stage import synchronize
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    k = 12
+    t0 = time.perf_counter()
+    pts = torus_points(n, seed=6).astype(np.float32)
+    pts = pts[morton_order(pts)]
+    graph = gt.grid_knn_graph_nosync(pts, 12, margin=2.4, device=device)
+    cfg = gt.MultigridConfig(coarse_threshold=800, smoother="chebyshev")
+    lap, mass = gt.graph_laplacian(graph, "invdist")
+    alpha = spectral_alpha(graph, lap_mass=(lap, mass))
+    op, _ = gt.screened_poisson_operator(graph, alpha=alpha,
+                                         lap_mass=(lap, mass))
+    gen = torch.Generator(device=device).manual_seed(0)
+    h, _ = gt.build_hierarchy_device(graph, op, cfg, generator=gen)
+    synchronize(dev)
+    out = {"n": n, "k": k, "alpha": float(alpha),
+           "setup_s": time.perf_counter() - t0,
+           "levels": [lvl.op.num_vertices for lvl in h.solver.levels]}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    rec = {}
+    t0 = time.perf_counter()
+    lams, vecs, res = gt.laplace_eigs(graph, k=k, cfg=cfg, h=h.solver,
+                                      iters=40, tol=1e-5, record=rec)
+    synchronize(dev)
+    total = time.perf_counter() - t0
+    v64 = vecs.double()
+    orth = float((v64.T @ (mass.double()[:, None] * v64)
+                  - torch.eye(k, dtype=torch.float64, device=vecs.device))
+                 .abs().max())
+    lam = lams.double().cpu().numpy()
+    steps = rec["steps"]
+    block = [st["block_s"] for st in steps]
+    rr = [st["rr_s"] for st in steps]
+    out.update(iters=rec["iters"], total_s=total, block_s=block, rr_s=rr,
+               lams=lam.tolist(), max_resnorm=float(res.max()),
+               orth_err=orth,
+               # Above what the process held before (the 200k hierarchy).
+               peak_bytes=torch.cuda.max_memory_allocated() - held
+               if on_card else None)
+    print(f"[14] c6 at n={n}: set-up {out['setup_s']:.2f} s (levels "
+          f"{out['levels']}, alpha {out['alpha']:.4g}); laplace_eigs k={k}: "
+          f"{rec['iters']} iterations, {total:.3f} s in all; per iteration "
+          f"device block {np.mean(block) * 1e3:.2f} ms (min "
+          f"{min(block) * 1e3:.2f}), Rayleigh-Ritz on the host "
+          f"{np.mean(rr) * 1e3:.2f} ms (min {min(rr) * 1e3:.2f})")
+    print(f"[14] lam_0 {lam[0]:.4e}, lam_1 {lam[1]:.6g}, lam_11 "
+          f"{lam[-1]:.6g}; max_resnorm {out['max_resnorm']:.3e} (c6 target "
+          f"1e-2); max|X^T M X - I| {orth:.3e}; peak device memory of "
+          f"laplace_eigs {out['peak_bytes']} bytes (above what the process "
+          f"held before it)")
+    finite = all(bool(torch.isfinite(t).all()) for t in (lams, vecs, res))
+    ascending = bool(np.all(np.diff(lam) >= 0))
+    if not (finite and ascending and orth <= 1e-4
+            and abs(lam[0]) <= 1e-3 * lam[-1]):
+        raise AssertionError(f"laplace_eigs failed its checks: finite "
+                             f"{finite}, ascending {ascending}, orth {orth}, "
+                             f"lams {lam}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -951,7 +1137,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     report = {"env": phase_environment(torch), "build": phase_build()}
-    cfg, h, h_greedy, report["setup"] = phase_setup(torch)
+    cfg, h, h_greedy, report["setup"], graph = phase_setup(torch)
     report["kernel_check"] = phase_kernel_check(torch, h)
     report["fixture"] = phase_fixture(torch)
     report["main"] = phase_main(torch, cfg, h, h_greedy)
@@ -960,7 +1146,8 @@ def main() -> int:
     report["profile"] = phase_profile(torch, cfg, h,
                                       report["main"]["vcycle_ms"])
     report["windows_1m"] = phase_window_finding(h)
-    del h
+    report["apps"] = phase_apps(torch, "cuda", N, (cfg, h, graph))
+    del h, graph
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -984,6 +1171,7 @@ def main() -> int:
     report["build_check"] = phase_build_check(graph, op, cfg)
     del graph, op
     report["solve_loops"] = phase_solve_loops(torch, cfg, hm)
+    report["lobpcg"] = phase_lobpcg(torch, "cuda", N_LOBPCG)
     # The CPU copy's solves come last: after half a minute of them
     # torch.profiler reports no device kernel any more in this process,
     # and the timing phases read the kernels' own times from it.

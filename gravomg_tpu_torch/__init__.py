@@ -5,9 +5,10 @@ is a hand-written CUDA kernel for Hopper (``csrc/blockdense_matvec.cu``),
 as are the transposed-tile SpMV of the ``mxu`` slab form
 (``csrc/mxu_matvec.cu``) and the gather probe's windowed SpMV
 (``csrc/window_gather.cu``); each has a plain torch twin that CPU tensors
-take.  The JAX package
-``gravomg_tpu`` is the reference the port is tested against; this
-package never imports it.
+take.  The applications (``apps``: Poisson solves, heat geodesics,
+implicit smoothing, Laplace eigenpairs) run on the same stack.  The JAX
+package ``gravomg_tpu`` is the reference the port is tested against;
+this package never imports it.
 """
 
 from gravomg_tpu_torch.config import (BARYCENTRIC, INVDIST, UNIFORM,
@@ -58,11 +59,14 @@ from gravomg_tpu_torch.geometry.laplacian import (cotan_laplacian,
                                                   extract_edges,
                                                   graph_laplacian,
                                                   to_edge_distance_graph)
-from gravomg_tpu_torch.apps.poisson import screened_poisson_operator
 from gravomg_tpu_torch.hierarchy import (DegenerateHierarchyError, Hierarchy,
                                          LevelData, build_hierarchy,
                                          build_hierarchy_device,
                                          build_hierarchy_host, coarsen_once)
+from gravomg_tpu_torch.apps import (heat_geodesics, implicit_smooth,
+                                    laplace_eigs, poisson_hierarchy,
+                                    refit_hierarchy,
+                                    screened_poisson_operator, solve_poisson)
 
 __all__ = [
     "assign_parents", "attach_fast_operators", "attach_operators",
@@ -70,19 +74,20 @@ __all__ = [
     "BARYCENTRIC", "build_hierarchy", "build_hierarchy_device",
     "build_hierarchy_host", "build_restriction", "cast_fast_operators",
     "chebyshev", "ChebyshevParams", "coarse_graph", "coarsen_once",
-    "construct_prolongation", "construct_voronoi_triangles",
-    "cotan_laplacian", "DegenerateHierarchyError", "EllOperator",
-    "estimate_lambda_max", "extract_coarse_edges", "extract_edges",
-    "fast_disc_sample", "fast_disc_sample_mask", "fast_disc_sample_priority",
-    "fcg", "fmg", "galerkin_rap", "Graph", "graph_from_edges",
-    "graph_from_numpy", "graph_laplacian", "grid_knn_graph",
-    "grid_knn_graph_nosync", "Hierarchy", "hierarchy_to_numpy",
-    "HierarchyStats", "INVALID_INDEX", "INVDIST", "knn_graph", "knn_indices",
-    "level_matvec", "level_to_numpy", "LevelData", "load_solver", "mg_fcg",
-    "mg_pcg", "mg_solve", "MultigridConfig", "pcg", "projected_points",
-    "prolong", "Prolongation", "residual", "restrict", "restrict_gather",
+    "construct_prolongation", "construct_voronoi_triangles", "cotan_laplacian",
+    "DegenerateHierarchyError", "EllOperator", "estimate_lambda_max",
+    "extract_coarse_edges", "extract_edges", "fast_disc_sample",
+    "fast_disc_sample_mask", "fast_disc_sample_priority", "fcg", "fmg",
+    "galerkin_rap", "Graph", "graph_from_edges", "graph_from_numpy",
+    "graph_laplacian", "grid_knn_graph", "grid_knn_graph_nosync",
+    "heat_geodesics", "Hierarchy", "hierarchy_to_numpy", "HierarchyStats",
+    "implicit_smooth", "INVALID_INDEX", "INVDIST", "knn_graph", "knn_indices",
+    "laplace_eigs", "level_matvec", "level_to_numpy", "LevelData",
+    "load_solver", "mg_fcg", "mg_pcg", "mg_solve", "MultigridConfig", "pcg",
+    "poisson_hierarchy", "projected_points", "prolong", "Prolongation",
+    "refit_hierarchy", "residual", "restrict", "restrict_gather",
     "Restriction", "sampling_radius", "save_solver", "scale_mesh",
-    "screened_poisson_operator", "solve", "solve_refined",
+    "screened_poisson_operator", "solve", "solve_poisson", "solve_refined",
     "solve_with_history", "solver_from_numpy", "SolverHierarchy",
     "SolverLevel", "spmv", "to_edge_distance_graph", "TriangleSet", "UNIFORM",
     "v_cycle", "weighted_jacobi",

@@ -16,8 +16,6 @@ coarsener on the host instead and is the cross-check of the two.
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +40,7 @@ from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy, SolverLevel,
 from gravomg_tpu_torch.types import (INVALID_INDEX, EllOperator, Graph,
                                      HierarchyStats, Prolongation,
                                      TriangleSet)
+from gravomg_tpu_torch.utils.stage import stage
 
 
 class LevelData(NamedTuple):
@@ -71,22 +70,6 @@ STAGES = ("sampling", "parents", "edges", "placement", "triangles",
           "prolongation", "rap")
 
 
-@contextlib.contextmanager
-def _stage(record: Optional[dict], name: str, dev: torch.device):
-    """Adds the synchronised seconds of the enclosed stage to
-    ``record[name]``; does nothing when ``record`` is None."""
-    if record is None:
-        yield
-        return
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    record[name] = record.get(name, 0.0) + time.perf_counter() - t0
-
-
 def coarsen_once(graph: Graph, cfg: MultigridConfig,
                  scheme: Optional[int] = None,
                  ranks: Optional[torch.Tensor] = None,
@@ -100,7 +83,7 @@ def coarsen_once(graph: Graph, cfg: MultigridConfig,
     """
     scheme = cfg.weighting if scheme is None else scheme
     dev = graph.neighbors.device
-    with _stage(record, "sampling", dev):
+    with stage(record, "sampling", dev):
         radius = sampling_radius(graph, cfg.reduction_ratio)
         mask, rounds = disc_sample_rounds(graph, radius, ranks)
         samples = torch.nonzero(mask).reshape(-1).to(torch.int32)
@@ -109,17 +92,17 @@ def coarsen_once(graph: Graph, cfg: MultigridConfig,
     n_coarse = samples.numel()
     if n_coarse < 8 or n_coarse >= graph.num_vertices:
         return None
-    with _stage(record, "parents", dev):
+    with stage(record, "parents", dev):
         parents, _ = assign_parents(graph, samples)
-    with _stage(record, "edges", dev):
+    with stage(record, "edges", dev):
         columns = extract_coarse_edges(graph, parents, n_coarse,
                                        cfg.degree_multiple)
-    with _stage(record, "placement", dev):
+    with stage(record, "placement", dev):
         cg = coarse_graph(columns, coarse_from_mean_of_fine_children(
             graph, parents, samples))
-    with _stage(record, "triangles", dev):
+    with stage(record, "triangles", dev):
         triangles = construct_voronoi_triangles(cg)
-    with _stage(record, "prolongation", dev):
+    with stage(record, "prolongation", dev):
         u, counts = construct_prolongation(
             graph.points, parents, cg.points, cg.neighbors, triangles,
             scheme=scheme)
@@ -158,7 +141,7 @@ def _build(graph: Graph, fine_op: EllOperator, cfg: MultigridConfig,
                 f"the nearest-point fallback (stats: {ld.stats!r}); the "
                 f"coarse graph is too disconnected for barycentric "
                 f"prolongation")
-        with _stage(rec, "rap", dev):
+        with stage(rec, "rap", dev):
             ops.append(galerkin_rap(ops[-1], ld.u, cfg.degree_multiple))
         if record is not None:
             record.append(rec)

@@ -33,43 +33,49 @@ from gravomg_tpu_torch.ops.slab import SlabOperator
 from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
                                              kernel_events, library_bmm,
                                              matvec_bound)
+from gravomg_tpu_torch.utils.stage import synchronize
 
 
 BUILD_SEED = 0      # of the generator the sampling priorities come from
 
 
-def bench_problem(n: int):
-    """The bench's problem at ``n`` points on the card: Morton-ordered
-    torus, grid kNN, screened Poisson.  Returns (config, graph, operator,
-    seconds)."""
+def bench_problem(n: int, device=None):
+    """The bench's problem at ``n`` points on ``device`` (the card
+    unless the caller names another): Morton-ordered torus, grid kNN,
+    screened Poisson.  Returns (config, graph, operator, seconds)."""
     t0 = time.perf_counter()
     pts = torus_points(n, seed=1).astype(np.float32)
     pts = pts[morton_order(pts)]
-    graph = gt.grid_knn_graph_nosync(pts, 16, margin=2.4)
+    graph = gt.grid_knn_graph_nosync(pts, 16, margin=2.4, device=device)
     op, _ = gt.screened_poisson_operator(graph, alpha="auto")
-    torch.cuda.synchronize()
+    synchronize(op.diag.device)
     cfg = gt.MultigridConfig(coarse_threshold=1000, smoother="chebyshev")
     return cfg, graph, op, time.perf_counter() - t0
 
 
-def bench_hierarchy(n: int):
-    """The bench's recipe at ``n`` points on the card, the hierarchy
-    built there by ``build_hierarchy_device`` with random priorities
-    from a generator seeded with ``BUILD_SEED`` (no fast forms yet).
-    Returns (config, solver hierarchy, {seconds of the front end and of
-    the hierarchy build, per-level stage seconds and statistics, peak
-    device memory of the build}, graph, operator)."""
-    cfg, graph, op, front_s = bench_problem(n)
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(BUILD_SEED)
+def bench_hierarchy(n: int, device=None):
+    """The bench's recipe at ``n`` points on ``device`` (the card unless
+    the caller names another), the hierarchy built there by
+    ``build_hierarchy_device`` with random priorities from a generator
+    seeded with ``BUILD_SEED`` (no fast forms yet).  Returns (config,
+    solver hierarchy, {seconds of the front end and of the hierarchy
+    build, per-level stage seconds and statistics, peak device memory
+    of the build (None off the card)}, graph, operator)."""
+    cfg, graph, op, front_s = bench_problem(n, device)
+    dev = op.diag.device
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(BUILD_SEED)
     record = []
     t1 = time.perf_counter()
     h, stats = gt.build_hierarchy_device(graph, op, cfg, generator=gen,
                                          record=record)
-    torch.cuda.synchronize()
+    synchronize(dev)
     return cfg, h.solver, {
         "front_s": front_s, "hierarchy_s": time.perf_counter() - t1,
-        "build_peak_bytes": torch.cuda.max_memory_allocated(),
+        "build_peak_bytes": (torch.cuda.max_memory_allocated()
+                             if on_card else None),
         "stages": record, "stats": [s._asdict() for s in stats]}, graph, op
 
 

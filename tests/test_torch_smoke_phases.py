@@ -1,0 +1,35 @@
+"""Phases 13 and 14 of chip_smoke.py (the apps, LOBPCG) on the CPU at a
+small n, so that a fault of the script's own bookkeeping shows before a
+run on the card.  The kernel's launch count is not asserted here: the
+CPU takes the plain twins."""
+
+import importlib.util
+import os
+
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_apps_and_lobpcg_phases_on_cpu():
+    cs = _chip_smoke()
+    apps = cs.phase_apps(torch, "cpu", 3000)
+    heat, smooth = apps["heat"], apps["smooth"]
+    assert apps["n"] == 3000 and heat["rising"] and heat["phi0"] == 0.0
+    assert heat["heat_rel"] <= 1e-8 and heat["poisson_rel"] <= 1e-8
+    assert len(heat["bin_means"]) == 8
+    assert smooth["finite"] and smooth["steps"][0]["cycles"] >= 1
+    lob = cs.phase_lobpcg(torch, "cpu", 2000)
+    assert 1 <= lob["iters"] == len(lob["block_s"]) == len(lob["rr_s"]) <= 40
+    assert lob["orth_err"] <= 1e-4 and lob["peak_bytes"] is None
+    assert len(lob["lams"]) == 12
