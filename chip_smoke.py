@@ -8,7 +8,7 @@ script exits nonzero:
 
   1. environment: torch, CUDA, the card's name and power limit, nvcc,
      g++ and triton versions;
-  2. build: the three kernels (nvcc, sm_90a, one process per source) and
+  2. build: the four kernels (nvcc, sm_90a, one process per source) and
      the C++ coarsener (g++) from the sources in the checkout, all
      started together;
   3. setup at n = 1,000,000 (the bench's recipe): Morton-ordered torus,
@@ -77,8 +77,9 @@ script exits nonzero:
      the refit's kept U and U^T forms make; phi finite, phi[0] = 0, the
      mean of phi over bins of distance from the source rising over the
      first half of the distance range), then one ``implicit_smooth`` step
-     (a (V, 3) stationary solve on the ELL path, at most
-     ``SMOOTH_MAX_CYCLES`` cycles; cycles, residual, seconds; finite);
+     (a (V, 3) stationary solve: A on the ELL gather, U and U^T through
+     the batched kernel B1, at most ``SMOOTH_MAX_CYCLES`` cycles; cycles,
+     residual, seconds, B1's launches; finite);
  14. MG-preconditioned LOBPCG at 100k, the c6 recipe of
      scripts/bench_configs.py (torus seed 6, grid kNN k=12,
      coarse_threshold=800, Chebyshev, alpha = ``spectral_alpha``, the
@@ -89,18 +90,38 @@ script exits nonzero:
      c6 target 1e-2, max|X^T M X - I| and the peak device memory of the
      eigensolve above what the process held before it; the values
      finite and ascending, max|X^T M X - I| <= 1e-4, |lam_0| <= 1e-3 *
-     lam_11.
+     lam_11;
+ 15. many right-hand sides on one hierarchy, B1 (the batched
+     block-window kernel): (b), run right after phase 13 on phase 3's 1M
+     hierarchy, one (V, 64) V-cycle against one 1-D cycle (times, B1's
+     launches, a profile), the (V, 64) and (V, 3) cycles against the
+     same cycles on the ELL forms alone, B1 against its twin on every
+     bucket of every slab form at D 3 and 64, f32 and bf16 m, at 1e-6 *
+     max|Y| and bitwise repeatable, and B1 on level-0 A (per call, alone, twin,
+     library, bytes, multiply-adds, bound and share, D 3 and 64); (a),
+     after phase 14, the c5 recipe of scripts/bench_configs.py uncut
+     (20,000 points, 64 right-hand sides): one (V, 64) V-cycle against
+     the 64 1-D cycles of its columns, each column within 1e-5 of its
+     largest entry, times, ms a right-hand side, B1's launches;
+ 16. a stacked mesh collection, the c5b recipe uncut: 64 tori of 5,000
+     points, each hierarchy built on the card, ``attach_collection``,
+     ``stack_solvers`` and ``batched_v_cycle`` (each mesh's real rows
+     against its own cycle within 1e-5, its padded rows exactly 0; time
+     against the per-mesh loop; padded and real row counts; peak device
+     memory), ``batched_solve``'s shared count and largest residual.
 
-Phases 13 and 14 are functions of (torch, device, n, ...) that also run
-on the CPU at a small n (tests/test_torch_smoke_phases.py).
+Phases 13-16 are functions of (torch, device, n, ...) that also run on
+the CPU at a small n (tests/test_torch_smoke_phases.py), but for 15 (b),
+which needs phase 3's hierarchy on the card.
 
 A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
-published 3.35 TB/s, or its multiply-adds over the published 67 TFLOP/s
-of f32 outside the tensor cores, whichever is larger (bytes, for all
-three kernels); gravomg_tpu_torch/probes/timing.py computes it.
+published 3.35 TB/s, or its multiply-adds (two operations each) over the
+published 67 TFLOP/s of f32 outside the tensor cores, whichever is
+larger (bytes for K1, K2 and the gather kernel; for B1 it depends on D);
+gravomg_tpu_torch/probes/timing.py computes it.
 
-The line before the last is a JSON object describing the three kernels;
+The line before the last is a JSON object describing the four kernels;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits nonzero and prints
 no result.  Longer results go to chiprun_out/chip_smoke.json.
@@ -124,6 +145,9 @@ N_LOBPCG = 100_000         # phase 14, the c6 recipe's size
 # and lies far above 1e-8 at 1M; the default 200 cycles would all run.
 SMOOTH_MAX_CYCLES = 20
 FIELDS = (("banded", "A"), ("uw", "U"), ("utw", "U^T"))
+C5_N, C5_D = 20_000, 64          # phase 15 (a), the c5 recipe
+C5B_MESHES, C5B_N = 64, 5_000    # phase 16, the c5b recipe
+TOL_COLUMNS = 1e-5               # a batched cycle against its own cycles
 
 
 def _run(cmd):
@@ -159,6 +183,7 @@ def phase_environment(torch):
 def _libraries():
     from gravomg_tpu_torch.ops import blockdense_cuda, mxu_cuda, window_gather
     return {"blockdense_matvec": blockdense_cuda.LIBRARY,
+            "blockdense_matmat": blockdense_cuda.MATMAT_LIBRARY,
             "mxu_matvec": mxu_cuda.LIBRARY,
             "window_gather": window_gather.LIBRARY}
 
@@ -975,11 +1000,12 @@ def phase_apps(torch, device, n, problem=None):
     ``implicit_smooth`` step on the bench recipe's hierarchy with slab
     forms at ``n`` points on ``device``; ``problem`` is (config, solver
     hierarchy, graph) of phase 3, else the recipe is built here.  On the
-    card the block-window kernel's launches over the phase must be
-    above 0."""
+    card the block-window kernel's launches over the phase, and B1's in
+    the (V, 3) smoothing solve, must be above 0."""
     import dataclasses
     import gravomg_tpu_torch as gt
-    from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_cuda
+    from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matmat_cuda,
+                                                       blockdense_matvec_cuda)
     from gravomg_tpu_torch.utils.stage import synchronize
     dev = torch.device(device)
     if problem is None:
@@ -1020,10 +1046,12 @@ def phase_apps(torch, device, n, problem=None):
 
     smooth = out["smooth"] = {}
     scfg = dataclasses.replace(cfg, max_cycles=SMOOTH_MAX_CYCLES)
+    blockdense_matmat_cuda.launches = 0
     t0 = time.perf_counter()
     new = gt.implicit_smooth(graph, h, steps=1, cfg=scfg, record=smooth)
     synchronize(dev)
     smooth["total_s"] = time.perf_counter() - t0
+    smooth["b1_launches"] = blockdense_matmat_cuda.launches
     step = smooth["steps"][0]
     finite = bool(torch.isfinite(new).all()) and new.shape == pts.shape
     moved = float((new.double() - pts).norm(dim=1).mean())
@@ -1033,7 +1061,8 @@ def phase_apps(torch, device, n, problem=None):
           f"{SMOOTH_MAX_CYCLES} cycles): refit {smooth['refit_s']:.3f} s, "
           f"{step['cycles']} cycles to {step['rel']:.3e} in "
           f"{step['solve_s']:.3f} s; {smooth['total_s']:.3f} s in all; "
-          f"finite {finite}, mean move {moved:.3e}")
+          f"finite {finite}, mean move {moved:.3e}; B1 launches (its U and "
+          f"U^T transfers) {smooth['b1_launches']}")
     print(f"[13] block-window kernel launches over the phase: "
           f"{out['k1_launches']}")
     if not finite:
@@ -1041,6 +1070,8 @@ def phase_apps(torch, device, n, problem=None):
     if dev.type == "cuda" and out["k1_launches"] <= 0:
         raise AssertionError("the apps never launched the block-window "
                              "kernel")
+    if dev.type == "cuda" and smooth["b1_launches"] <= 0:
+        raise AssertionError("implicit_smooth never launched B1")
     return out
 
 
@@ -1116,6 +1147,335 @@ def phase_lobpcg(torch, device, n):
     return out
 
 
+def _timed(torch, dev, fn, reps=10):
+    """Median ms of ``fn`` on the card (CUDA events); None off the card
+    (a CPU run gives no device time)."""
+    if dev.type != "cuda":
+        fn()
+        return None
+    from gravomg_tpu_torch.probes.timing import cuda_ms
+    return cuda_ms(fn, reps=reps)
+
+
+def c5_problem(torch, device, n):
+    """The c5 recipe of scripts/bench_configs.py at ``n`` points: torus
+    seed 4, Morton order, grid kNN k=12 margin 2.4, screened Poisson
+    alpha="auto", coarse_threshold=600, Chebyshev, the hierarchy built
+    by ``build_hierarchy_device`` (generator seeded 0) with slab forms
+    and uniform forms on the rest.  Returns (config, hierarchy)."""
+    import numpy as np
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.geometry.meshes import torus_points
+    from gravomg_tpu_torch.geometry.order import morton_order
+    pts = torus_points(n, seed=4).astype(np.float32)
+    pts = pts[morton_order(pts)]
+    graph = gt.grid_knn_graph_nosync(pts, 12, margin=2.4, device=device)
+    op, _ = gt.screened_poisson_operator(graph, alpha="auto")
+    cfg = gt.MultigridConfig(coarse_threshold=600, smoother="chebyshev")
+    gen = torch.Generator(device=device).manual_seed(0)
+    h, _ = gt.build_hierarchy_device(graph, op, cfg, generator=gen)
+    return cfg, gt.attach_fast_operators(gt.attach_slab_operators(h.solver))
+
+
+def _worst_column(x, cols):
+    """Largest max|x[:, j] - cols[j]| / max|cols[j]| over the columns."""
+    return max(float((x[:, j] - c).abs().max())
+               / max(float(c.abs().max()), 1e-30)
+               for j, c in enumerate(cols))
+
+
+def phase_rhs_batch(torch, device, n, d):
+    """Phase 15 (a): the c5 recipe at ``n`` points with ``d``
+    right-hand sides (N(0,1) from ``default_rng(2)``, drawn (d, n) as
+    the JAX recipe draws them, laid out (n, d)): one (n, d) V-cycle from
+    zero against the d 1-D cycles of its columns (each column within
+    ``TOL_COLUMNS`` of its largest entry), their times on the card and
+    B1's launches in the (n, d) cycle (above 0 on the card)."""
+    import numpy as np
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
+    from gravomg_tpu_torch.utils.stage import synchronize
+    dev = torch.device(device)
+    cfg, h = c5_problem(torch, device, n)
+    rhs = np.random.default_rng(2).normal(size=(d, n)).astype(np.float32)
+    b = torch.as_tensor(np.ascontiguousarray(rhs.T), device=dev)
+    bcols = [b[:, j].contiguous() for j in range(d)]
+    blockdense_matmat_cuda.launches = 0
+    x = gt.v_cycle(h, torch.zeros_like(b), b, cfg)
+    synchronize(dev)
+    launches = blockdense_matmat_cuda.launches
+    worst = _worst_column(x, [gt.v_cycle(h, torch.zeros_like(c), c, cfg)
+                              for c in bcols])
+    batch_ms = _timed(torch, dev,
+                      lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
+    seq_ms = _timed(torch, dev, lambda: [
+        gt.v_cycle(h, torch.zeros_like(c), c, cfg) for c in bcols])
+    forms = [[_fast_kind(getattr(lvl, f)) for f, _ in FIELDS]
+             for lvl in h.levels[:-1]]
+    out = {"n": n, "d": d, "levels": [lvl.op.num_vertices
+                                      for lvl in h.levels],
+           "forms": forms, "worst_column_rel": worst, "b1_launches": launches,
+           "batch_ms": batch_ms, "sequential_ms": seq_ms,
+           "batch_ms_per_rhs": None if batch_ms is None else batch_ms / d,
+           "sequential_ms_per_rhs": None if seq_ms is None else seq_ms / d}
+    print(f"[15] c5 at n={n}, {d} right-hand sides: levels {out['levels']}, "
+          f"forms [A, U, U^T] per level {forms}; one ({n}, {d}) V-cycle "
+          f"{_fmt(batch_ms)} ms ({_fmt(out['batch_ms_per_rhs'])} ms a "
+          f"right-hand side) against {d} 1-D cycles {_fmt(seq_ms)} ms "
+          f"({_fmt(out['sequential_ms_per_rhs'])} ms each; CUDA events, "
+          f"median of 10); columns vs 1-D cycles max|d|/max|x| {worst:.3e}; "
+          f"B1 launches in the ({n}, {d}) cycle {launches}")
+    finite = bool(torch.isfinite(x).all()) and x.shape == b.shape
+    if not (finite and worst <= TOL_COLUMNS):
+        raise AssertionError(f"c5: finite/shape {finite}, columns against "
+                             f"1-D cycles {worst:.3e} > {TOL_COLUMNS}")
+    if dev.type == "cuda" and launches <= 0:
+        raise AssertionError("the (n, d) cycle never launched B1")
+    return out
+
+
+def _check_matmat(torch, slabs, ds, tag):
+    """B1 against its twin on every bucket of every slab form in
+    ``slabs`` at each D of ``ds``, f32 and bf16 m, at ``TOL_KERNEL``;
+    each bucket twice on one input, the two Y bitwise equal."""
+    from gravomg_tpu_torch.ops.blockdense import pad_x
+    from gravomg_tpu_torch.ops.blockdense_cuda import (
+        blockdense_matmat_cuda, blockdense_matmat_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst_rel, worst_abs, n = 0.0, 0.0, 0
+    for label, sop in slabs:
+        for d in ds:
+            x = torch.randn((sop.n_cols, d), generator=gen, device="cuda")
+            xp = pad_x(sop.buckets[0], x)
+            for dt in (torch.float32, torch.bfloat16):
+                for b in sop.buckets:
+                    bb = _bucket_on(b, dt)
+                    y1 = blockdense_matmat_cuda(bb, x, xp)
+                    y2 = blockdense_matmat_cuda(bb, x, xp)
+                    yp = blockdense_matmat_plain(bb, x, xp)
+                    torch.cuda.synchronize()
+                    if not torch.equal(y1, y2):
+                        raise AssertionError(f"B1 on {label} cap {b.nw} "
+                                             f"D={d}: two runs differ")
+                    err = float((y1 - yp).abs().max())
+                    rel = err / max(float(yp.abs().max()), 1e-30)
+                    worst_rel = max(worst_rel, rel)
+                    worst_abs = max(worst_abs, err)
+                    n += 1
+                    if not rel <= TOL_KERNEL:
+                        raise AssertionError(
+                            f"B1 vs twin on {label} cap {b.nw} D={d} "
+                            f"{_dtype_name(dt)}: {rel:.3e} > {TOL_KERNEL}")
+    if not n:
+        raise AssertionError("no slab form to check B1 on")
+    print(f"[{tag}] B1 vs twin ok on {n} (bucket, D, dtype) cases of "
+          f"{len(slabs)} slab forms, D {list(ds)}, f32 and bf16 m, bitwise "
+          f"repeatable, worst {worst_rel:.3e} <= {TOL_KERNEL}")
+    return {"cases": n, "worst_rel": worst_rel, "worst_abs": worst_abs}
+
+
+def phase_rhs_1m(torch, cfg, h):
+    """Phase 15 (b), on the card: phase 3's 1M hierarchy (slab forms)
+    with D=64 right-hand sides (a generator seeded 0): one (V, 64)
+    V-cycle against one 1-D cycle, with B1's launches and a profile;
+    the (V, 64) and (V, 3) cycles through B1 against the same cycles on
+    the ELL forms alone (the route a 2-D x took before B1); B1 against
+    its twin on every bucket of every slab form at D 3 and 64; and B1
+    on level-0 A, f32 and bf16 m, D 3 and 64: per call, alone, plain
+    twin, library (f32), bytes, multiply-adds, bound."""
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.ops.blockdense_cuda import (
+        blockdense_matmat_cuda, blockdense_matmat_plain)
+    from gravomg_tpu_torch.parallel.sharding import drop_fast_forms
+    from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
+                                                 kernel_ms, library_bmm,
+                                                 matvec_bound)
+    d = 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = torch.randn((N, d), generator=gen, device="cuda")
+    b1 = b[:, 0].contiguous()
+    blockdense_matmat_cuda.launches = 0
+    x = gt.v_cycle(h, torch.zeros_like(b), b, cfg)
+    torch.cuda.synchronize()
+    out = {"launches": blockdense_matmat_cuda.launches}
+    cols = [gt.v_cycle(h, torch.zeros_like(b1), b1, cfg)]
+    out["worst_column_rel"] = _worst_column(x[:, :1], cols)
+    finite = bool(torch.isfinite(x).all())
+    out["vcycle64_ms"] = cuda_ms(
+        lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
+    out["vcycle1_ms"] = cuda_ms(
+        lambda: gt.v_cycle(h, torch.zeros_like(b1), b1, cfg))
+    print(f"[15] 1M, {d} right-hand sides: one (V, {d}) V-cycle "
+          f"{out['vcycle64_ms']:.3f} ms ({out['vcycle64_ms'] / d:.3f} ms a "
+          f"right-hand side) against one 1-D cycle {out['vcycle1_ms']:.3f} "
+          f"ms (CUDA events, median of 10); B1 launches in one (V, {d}) "
+          f"cycle {out['launches']}; column 0 vs its 1-D cycle "
+          f"{out['worst_column_rel']:.3e}; finite {finite}")
+    h_ell = drop_fast_forms(h)
+    b3 = b[:, :3].contiguous()
+    # The ELL (V, 64) cycle takes about half a second: three timed runs.
+    out["vcycle64_ell_ms"] = cuda_ms(
+        lambda: gt.v_cycle(h_ell, torch.zeros_like(b), b, cfg), reps=3,
+        warmup=1)
+    out["vcycle3_ms"] = cuda_ms(
+        lambda: gt.v_cycle(h, torch.zeros_like(b3), b3, cfg))
+    out["vcycle3_ell_ms"] = cuda_ms(
+        lambda: gt.v_cycle(h_ell, torch.zeros_like(b3), b3, cfg))
+    print(f"[15] the same cycles on the ELL forms alone: (V, {d}) "
+          f"{out['vcycle64_ell_ms']:.3f} ms (median of 3); (V, 3) through "
+          f"B1 {out['vcycle3_ms']:.3f} ms against ELL "
+          f"{out['vcycle3_ell_ms']:.3f} ms (median of 10)")
+    del h_ell, b3
+    if not (finite and out["worst_column_rel"] <= TOL_COLUMNS):
+        raise AssertionError("the 1M (V, 64) cycle failed its checks")
+    if out["launches"] <= 0:
+        raise AssertionError("the 1M (V, 64) cycle never launched B1")
+    out["profile"] = _profile_vcycle(torch, cfg, h, b, out["vcycle64_ms"],
+                                     "15")
+    del x, cols
+    out["check"] = _check_matmat(torch, _slabs(h), (3, d), "15")
+    a0 = h.levels[0].banded
+    for dd in (3, d):
+        xx = torch.randn((N, dd), generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            bs = [_bucket_on(bk, dt) for bk in a0.buckets]
+            kern = bucket_loop(blockdense_matmat_cuda, bs, xx)
+            plain = bucket_loop(blockdense_matmat_plain, bs, xx)
+            p1 = cuda_ms(plain)
+            k1 = cuda_ms(kern)
+            k2 = cuda_ms(kern)
+            p2 = cuda_ms(plain)
+            alone = kernel_ms(kern, "blockdense_matmat_kernel")
+            bound_ms, bound_by, io_bytes = matvec_bound(bs, xx)
+            madds = dd * sum(bk.m.numel() for bk in bs)
+            # No library call for bf16 m: torch.bmm in bf16 rounds X.
+            lib = (cuda_ms(library_bmm(bs, xx)) if dt == torch.float32
+                   else None)
+            name = f"D{dd} {_dtype_name(dt)}"
+            k_ms = min(k1, k2)
+            out[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                         "alone_ms": alone, "io_bytes": io_bytes,
+                         "multiply_adds": madds, "bound_ms": bound_ms,
+                         "bound_by": bound_by,
+                         "share_of_bound": bound_ms / k_ms,
+                         "alone_share_of_bound": (None if alone is None
+                                                  else bound_ms / alone),
+                         "library_ms": lib}
+            print(f"[15] B1 level-0 A ({len(bs)} buckets) {name}: per call "
+                  f"{k1:.3f}/{k2:.3f} ms (escape and diagonal included), "
+                  f"kernels alone {_fmt(alone)} ms; twin {p1:.3f}/{p2:.3f} "
+                  f"ms; {io_bytes} bytes, {madds} multiply-adds, bound "
+                  f"{bound_ms:.3f} ms ({bound_by}), share "
+                  f"{bound_ms / k_ms:.2f} (alone "
+                  f"{_fmt(out[name]['alone_share_of_bound'], 2)}); "
+                  f"library (one torch.bmm per bucket, windows gathered) "
+                  + ("none" if lib is None else f"{lib:.3f} ms"))
+        del xx
+    del b, b1
+    return out
+
+
+def phase_meshes(torch, device, n_meshes, n):
+    """Phase 16: the c5b recipe of scripts/bench_configs.py with
+    ``n_meshes`` tori of ``n`` points (seed 200 + i, each scaled by
+    1 + 0.25 * default_rng(5).random(3), Morton order, grid kNN k=12
+    margin 2.4, alpha="auto", coarse_threshold=400, max_levels=3,
+    Chebyshev), each hierarchy built by ``build_hierarchy_device``
+    (generator seeded i); ``attach_collection``, ``stack_solvers`` and
+    one ``batched_v_cycle`` on N(0,1) right-hand sides from
+    ``default_rng(3)`` (zero on padded rows): each mesh's real rows
+    against its own ELL ``v_cycle`` within ``TOL_COLUMNS`` of its
+    largest entry, its padded rows exactly 0; the batched cycle's time
+    against the per-mesh loop (card only), the padded row counts against
+    the real ones, peak device memory above what the process held, and
+    ``batched_solve``'s shared count and largest residual (reported:
+    the f32 stationary solve stalls above 1e-8)."""
+    import numpy as np
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.geometry.meshes import torus_points
+    from gravomg_tpu_torch.geometry.order import morton_order
+    from gravomg_tpu_torch.utils.stage import synchronize
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = gt.MultigridConfig(coarse_threshold=400, smoother="chebyshev",
+                             max_levels=3)
+    rng = np.random.default_rng(5)
+    hs, build_s = [], 0.0
+    for i in range(n_meshes):
+        pts = torus_points(n, seed=200 + i)
+        pts = pts * (1.0 + 0.25 * rng.random(3))
+        pts = pts[morton_order(pts)].astype(np.float32)
+        graph = gt.grid_knn_graph_nosync(pts, 12, margin=2.4, device=device)
+        op, _ = gt.screened_poisson_operator(graph, alpha="auto")
+        synchronize(dev)
+        t0 = time.perf_counter()
+        h, _ = gt.build_hierarchy_device(
+            graph, op, cfg,
+            generator=torch.Generator(device=device).manual_seed(i))
+        synchronize(dev)
+        build_s += time.perf_counter() - t0
+        hs.append(h.solver)
+    real = [[lvl.op.num_vertices for lvl in h.levels] for h in hs]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fast = gt.attach_collection(hs)
+    hb = gt.stack_solvers(fast)
+    synchronize(dev)
+    attach_s = time.perf_counter() - t0
+    rows = [lvl.op.num_vertices for lvl in hb.levels]
+    draws = np.random.default_rng(3).normal(size=(n_meshes, rows[0]))
+    bs = torch.zeros((n_meshes, rows[0]), dtype=torch.float32, device=dev)
+    for i, r in enumerate(real):
+        bs[i, :r[0]] = torch.as_tensor(draws[i, :r[0]], dtype=torch.float32)
+    xs = gt.batched_v_cycle(hb, torch.zeros_like(bs), bs, cfg)
+    worst, padded_zero = 0.0, True
+    for i, (h, r) in enumerate(zip(hs, real)):
+        b = bs[i, :r[0]]
+        x1 = gt.v_cycle(h, torch.zeros_like(b), b, cfg)
+        worst = max(worst, float((xs[i, :r[0]] - x1).abs().max())
+                    / max(float(x1.abs().max()), 1e-30))
+        padded_zero = padded_zero and not bool(xs[i, r[0]:].any())
+    batch_ms = _timed(torch, dev, lambda: gt.batched_v_cycle(
+        hb, torch.zeros_like(bs), bs, cfg))
+    loop_ms = _timed(torch, dev, lambda: [
+        gt.v_cycle(f, torch.zeros_like(bs[i]), bs[i], cfg)
+        for i, f in enumerate(fast)])
+    _, rels, iters = gt.batched_solve(hb, bs, cfg)
+    peak = (torch.cuda.max_memory_allocated() - held) if on_card else None
+    out = {"meshes": n_meshes, "n": n, "build_all_s": build_s,
+           "attach_stack_s": attach_s, "padded_rows": rows,
+           "real_rows_min": [min(c) for c in zip(*real)],
+           "real_rows_max": [max(c) for c in zip(*real)],
+           "worst_mesh_rel": worst, "padded_rows_zero": padded_zero,
+           "batch_ms": batch_ms, "loop_ms": loop_ms,
+           "batch_ms_per_mesh": None if batch_ms is None
+           else batch_ms / n_meshes,
+           "solve_iters": iters, "solve_max_rel": float(rels.max()),
+           "peak_bytes": peak, "phase_s": time.perf_counter() - t_phase}
+    print(f"[16] c5b: {n_meshes} tori of {n} points, all {n_meshes} "
+          f"hierarchies built on {dev.type} in {build_s:.3f} s; "
+          f"attach_collection + stack_solvers {attach_s:.3f} s; rows per "
+          f"level padded to {rows} (real {out['real_rows_min']} to "
+          f"{out['real_rows_max']})")
+    print(f"[16] batched V-cycle {_fmt(batch_ms)} ms "
+          f"({_fmt(out['batch_ms_per_mesh'])} ms a mesh) against the "
+          f"per-mesh loop {_fmt(loop_ms)} ms (CUDA events, median of 10); "
+          f"each mesh's real rows vs its own cycle max|d|/max|x| "
+          f"{worst:.3e}, padded rows exactly 0: {padded_zero}; "
+          f"batched_solve {iters} shared cycles, largest residual "
+          f"{out['solve_max_rel']:.3e}; peak device memory {peak} bytes "
+          f"above what the process held; phase {out['phase_s']:.1f} s")
+    finite = bool(torch.isfinite(xs).all())
+    if not (finite and padded_zero and worst <= TOL_COLUMNS):
+        raise AssertionError(f"c5b: finite {finite}, padded rows zero "
+                             f"{padded_zero}, meshes vs own cycles "
+                             f"{worst:.3e}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1147,6 +1507,7 @@ def main() -> int:
                                       report["main"]["vcycle_ms"])
     report["windows_1m"] = phase_window_finding(h)
     report["apps"] = phase_apps(torch, "cuda", N, (cfg, h, graph))
+    report["rhs_1m"] = phase_rhs_1m(torch, cfg, h)
     del h, graph
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1172,6 +1533,10 @@ def main() -> int:
     del graph, op
     report["solve_loops"] = phase_solve_loops(torch, cfg, hm)
     report["lobpcg"] = phase_lobpcg(torch, "cuda", N_LOBPCG)
+    report["rhs_c5"] = phase_rhs_batch(torch, "cuda", C5_N, C5_D)
+    torch.cuda.empty_cache()
+    report["meshes"] = phase_meshes(torch, "cuda", C5B_MESHES, C5B_N)
+    torch.cuda.empty_cache()
     # The CPU copy's solves come last: after half a minute of them
     # torch.profiler reports no device kernel any more in this process,
     # and the timing phases read the kernels' own times from it.
@@ -1185,6 +1550,7 @@ def main() -> int:
         json.dump(report, f, indent=1)
     f32 = report["timing"]["float32"]
     m32 = report["mxu_timing"]["L0 A float32"]
+    b32 = report["rhs_1m"]["D64 float32"]
     g1m = report["gather"]["P1_1000000"]
     kernels = {"kernels": [{
         "name": "blockdense_matvec",
@@ -1228,6 +1594,19 @@ def main() -> int:
         # No single PyTorch call computes it: the twin is a gather, a
         # product and a sum.
         "library_ms": None,
+    }, {
+        "name": "blockdense_matmat",
+        "route": "cuda",
+        "source": "gravomg_tpu_torch/csrc/blockdense_matmat.cu",
+        "replaces": "gravomg_tpu/ops/pallas_blockdense.py:64 under jax.vmap "
+                    "(scripts/bench_configs.py:261-264)",
+        "launches": report["rhs_1m"]["launches"],
+        "max_abs_err": report["rhs_1m"]["check"]["worst_abs"],
+        "ms": min(b32["kernel_ms"]),
+        "plain_ms": min(b32["plain_ms"]),
+        "bound_ms": b32["bound_ms"],
+        "bound_by": b32["bound_by"],
+        "library_ms": b32["library_ms"],
     }]}
     print(f"[done] {report['total_s']:.1f} s")
     print(json.dumps(kernels))

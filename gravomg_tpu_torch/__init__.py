@@ -5,8 +5,12 @@ is a hand-written CUDA kernel for Hopper (``csrc/blockdense_matvec.cu``),
 as are the transposed-tile SpMV of the ``mxu`` slab form
 (``csrc/mxu_matvec.cu``) and the gather probe's windowed SpMV
 (``csrc/window_gather.cu``); each has a plain torch twin that CPU tensors
-take.  The applications (``apps``: Poisson solves, heat geodesics,
-implicit smoothing, Laplace eigenpairs) run on the same stack.  The JAX
+take.  A (V, D) right-hand side on the 8-row slab form runs the batched
+kernel B1 (``csrc/blockdense_matmat.cu``), which reads the window
+matrices once for up to 64 columns.  The applications (``apps``: Poisson
+solves, heat geodesics, implicit smoothing, Laplace eigenpairs) run on
+the same stack, and ``parallel`` stacks a collection of meshes into one
+batched cycle.  The JAX
 package ``gravomg_tpu`` is the reference the port is tested against;
 this package never imports it.
 """
@@ -63,15 +67,22 @@ from gravomg_tpu_torch.hierarchy import (DegenerateHierarchyError, Hierarchy,
                                          LevelData, build_hierarchy,
                                          build_hierarchy_device,
                                          build_hierarchy_host, coarsen_once)
+from gravomg_tpu_torch.parallel import (attach_collection, batched_solve,
+                                        batched_v_cycle, pad_axis,
+                                        pad_solver_fine_level,
+                                        pad_solver_levels, pad_solver_to,
+                                        stack_solvers, stackable)
 from gravomg_tpu_torch.apps import (heat_geodesics, implicit_smooth,
                                     laplace_eigs, poisson_hierarchy,
                                     refit_hierarchy,
                                     screened_poisson_operator, solve_poisson)
 
 __all__ = [
-    "assign_parents", "attach_fast_operators", "attach_operators",
+    "assign_parents", "attach_collection", "attach_fast_operators",
+    "attach_operators",
     "attach_restrictions", "attach_slab_operators", "average_edge_length",
-    "BARYCENTRIC", "build_hierarchy", "build_hierarchy_device",
+    "BARYCENTRIC", "batched_solve", "batched_v_cycle", "build_hierarchy",
+    "build_hierarchy_device",
     "build_hierarchy_host", "build_restriction", "cast_fast_operators",
     "chebyshev", "ChebyshevParams", "coarse_graph", "coarsen_once",
     "construct_prolongation", "construct_voronoi_triangles", "cotan_laplacian",
@@ -83,12 +94,15 @@ __all__ = [
     "heat_geodesics", "Hierarchy", "hierarchy_to_numpy", "HierarchyStats",
     "implicit_smooth", "INVALID_INDEX", "INVDIST", "knn_graph", "knn_indices",
     "laplace_eigs", "level_matvec", "level_to_numpy", "LevelData",
-    "load_solver", "mg_fcg", "mg_pcg", "mg_solve", "MultigridConfig", "pcg",
+    "load_solver", "mg_fcg", "mg_pcg", "mg_solve", "MultigridConfig",
+    "pad_axis", "pad_solver_fine_level", "pad_solver_levels",
+    "pad_solver_to", "pcg",
     "poisson_hierarchy", "projected_points", "prolong", "Prolongation",
     "refit_hierarchy", "residual", "restrict", "restrict_gather",
     "Restriction", "sampling_radius", "save_solver", "scale_mesh",
     "screened_poisson_operator", "solve", "solve_poisson", "solve_refined",
     "solve_with_history", "solver_from_numpy", "SolverHierarchy",
+    "stack_solvers", "stackable",
     "SolverLevel", "spmv", "to_edge_distance_graph", "TriangleSet", "UNIFORM",
     "v_cycle", "weighted_jacobi",
 ]

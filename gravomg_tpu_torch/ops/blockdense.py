@@ -20,7 +20,9 @@ slab forms do not take (unaligned windows, window 0 anchored at
 :func:`block_anchors` or the scaled diagonal) run through
 :func:`blockdense_matvec`, the plain torch port of the JAX package's
 XLA matvec, which rounds the gathered x to m's dtype; the JAX package
-runs these forms through XLA, never through a Pallas kernel.
+runs these forms through XLA, never through a Pallas kernel.  That
+matvec also takes D right-hand sides at once, and a stack of
+same-shape operators (``parallel/batch.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from gravomg_tpu_torch.types import EllOperator
+from gravomg_tpu_torch.types import EllOperator, batched_take
 
 _IMAX = 2**31 - 1
 
@@ -59,7 +61,13 @@ class BlockDenseOperator(NamedTuple):
 
     @property
     def nw(self) -> int:
-        return self.win_start.shape[1]
+        return self.win_start.shape[-1]
+
+    @property
+    def stacked(self) -> bool:
+        """A stack of same-shape operators (leading mesh axis on every
+        tensor, ``parallel/batch.py``)."""
+        return self.win_start.ndim == 3
 
 
 def blockdense_from_ell(cols: torch.Tensor, vals: torch.Tensor,
@@ -189,17 +197,16 @@ def trim_escape(op: BlockDenseOperator,
 
 def window_index(op: BlockDenseOperator, n_x: int) -> torch.Tensor:
     """(NBLK, NWW) indices into x zero-padded to :func:`padded_length`,
-    window by window in m's column order."""
-    nblk, nw = op.win_start.shape
+    window by window in m's column order ((B, NBLK, NWW) for a stack)."""
     dev = op.win_start.device
     xlen = padded_length(op, n_x)
     parts = []
-    for wi in range(nw):
+    for wi in range(op.nw):
         width = op.window0 if wi == 0 else op.window
         # Starts clamp like a dynamic slice: the window stays in bounds.
-        s = torch.clamp(op.win_start[:, wi].long(), 0, xlen - width)
-        parts.append(s[:, None] + torch.arange(width, device=dev)[None, :])
-    return torch.cat(parts, dim=1)
+        s = torch.clamp(op.win_start[..., wi].long(), 0, xlen - width)
+        parts.append(s[..., None] + torch.arange(width, device=dev))
+    return torch.cat(parts, dim=-1)
 
 
 def padded_length(op: BlockDenseOperator, n_x: int) -> int:
@@ -209,30 +216,46 @@ def padded_length(op: BlockDenseOperator, n_x: int) -> int:
 
 
 def pad_x(op: BlockDenseOperator, x: torch.Tensor) -> torch.Tensor:
-    xp = x.new_zeros((padded_length(op, x.shape[0]),))
+    """x (n_cols,) or (n_cols, D) zero-padded along its rows to
+    :func:`padded_length`, contiguous; for a stack of operators, x (B,
+    n_cols) padded along its last axis."""
+    if op.stacked:
+        n = x.shape[1]
+        return torch.nn.functional.pad(x, (0, padded_length(op, n) - n))
+    xp = x.new_zeros((padded_length(op, x.shape[0]),) + x.shape[1:])
     xp[:x.shape[0]] = x
     return xp
 
 
 def add_escape(op: BlockDenseOperator, y: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
-    """y + the escape chute's sorted-COO contributions (y has n_rows).
+    """y + the escape chute's sorted-COO contributions (y has n_rows;
+    x and y are (n,), (n, D), or (B, n) for a stack of operators).
 
     ``index_add_`` adds in no fixed order on the card; compare at a
     tolerance."""
-    if not op.esc_w.shape[0]:
+    if not op.esc_w.shape[-1]:
         return y
+    cols = torch.clamp(op.esc_cols, max=op.n_cols - 1)
+    if op.stacked:
+        r = y.shape[1]
+        contrib = (op.esc_w * batched_take(x, cols)).to(x.dtype)
+        acc = x.new_zeros((x.shape[0], r + 1))
+        acc.scatter_add_(1, torch.clamp(op.esc_rows, max=r).long(), contrib)
+        return y + acc[:, :r]
     r = y.shape[0]
-    contrib = (op.esc_w * x[torch.clamp(op.esc_cols, max=op.n_cols - 1)]
-               ).to(x.dtype)
-    acc = torch.zeros((r + 1,), dtype=x.dtype, device=x.device)
+    w = op.esc_w if x.ndim == 1 else op.esc_w[:, None]
+    contrib = (w * x[cols]).to(x.dtype)
+    acc = x.new_zeros((r + 1,) + x.shape[1:])
     acc.index_add_(0, torch.clamp(op.esc_rows, max=r), contrib)
     return y + acc[:r]
 
 
 def blockdense_matvec(op: BlockDenseOperator, x: torch.Tensor
                       ) -> torch.Tensor:
-    """y = A x (1-D x of length n_cols), plain torch.
+    """y = A x, plain torch: x (n_cols,), or (n_cols, D) for D
+    right-hand sides, or (B, n_cols) for a stack of operators, one row
+    per mesh.
 
     As in the JAX package's non-kernel path, the gathered windows are
     rounded to m's dtype (for bf16 m this differs from the block-window
@@ -240,15 +263,32 @@ def blockdense_matvec(op: BlockDenseOperator, x: torch.Tensor
     summed in f32, as the JAX package's jitted solvers form them: XLA
     drops the bf16 rounding of the product under jit (excess precision),
     which moves a bf16 matvec by ~1e-3 relative against JAX's op-by-op
-    result on the 24k fixture."""
+    result on the 24k fixture.  A 2-D x, and a stack, take one batched
+    f32 product of m with the gathered windows (TF32 must be off, as it
+    is by default), which is the function JAX's vmap of the 1-D matvec
+    computes."""
     r = op.n_rows
     acc = torch.promote_types(op.m.dtype, torch.float32)
-    wins = pad_x(op, x)[window_index(op, x.shape[0])].to(op.m.dtype).to(acc)
-    y = torch.sum(op.m.to(acc) * wins[:, None, :], dim=2)
-    y = y.reshape(-1)[:r].to(x.dtype)
+    m = op.m.to(acc)
+    idx = window_index(op, x.shape[-1] if op.stacked else x.shape[0])
+    if op.stacked:
+        wins = batched_take(pad_x(op, x), idx)          # (B, NBLK, NWW)
+        y = torch.matmul(m, wins.to(op.m.dtype).to(acc)[..., None])
+        y = y.reshape(x.shape[0], -1)[:, :r].to(x.dtype)
+        diag = op.diag
+    elif x.ndim == 2:
+        wins = pad_x(op, x)[idx]                        # (NBLK, NWW, D)
+        y = torch.matmul(m, wins.to(op.m.dtype).to(acc))
+        y = y.reshape(-1, x.shape[1])[:r].to(x.dtype)
+        diag = None if op.diag is None else op.diag[:, None]
+    else:
+        wins = pad_x(op, x)[idx].to(op.m.dtype).to(acc)
+        y = torch.sum(m * wins[:, None, :], dim=2)
+        y = y.reshape(-1)[:r].to(x.dtype)
+        diag = op.diag
     y = add_escape(op, y, x)
-    if op.diag is not None:
-        y = y + op.diag * x
+    if diag is not None:
+        y = y + diag * x
     return y
 
 

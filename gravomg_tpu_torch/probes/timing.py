@@ -4,8 +4,8 @@ card and to hold the time against the card's bound.
 A kernel's bound is the least time the card could take for the same
 work: the bytes the function must move (each input read once, each
 output written once) over the H100's published device-memory rate, or
-its operations over the published f32 rate of the CUDA cores, whichever
-is larger.
+its operations over the published f32 rate of the CUDA cores (a
+multiply-add counts two), whichever is larger.
 """
 
 from __future__ import annotations
@@ -77,9 +77,10 @@ def bound(nbytes: int, flops: int):
 def matvec_bound(buckets, x, plan=None):
     """Bound of one slab matvec over ``buckets``: (ms, bound_by, bytes).
 
-    Without ``plan`` (the block-window kernel, one launch per bucket,
-    which reads every block of a bucket): m, win_start and the padded x
-    read once, y written once, one multiply-add per entry of m.  With
+    Without ``plan`` (the block-window kernels, one launch per bucket,
+    which read every block of a bucket): m, win_start and the padded x
+    read once, y written once, one multiply-add per entry of m and
+    column of x (x (n_cols,), or (n_cols, D) for B1).  With
     the transposed-tile kernel's work table ``plan``: what that table
     makes the kernel read and write (``plan_bytes``: a bucket's padding
     blocks have no item and are not counted), one multiply-add per entry
@@ -90,20 +91,29 @@ def matvec_bound(buckets, x, plan=None):
         ms, by = bound(pb["io"],
                        2 * pb["tiles"] // buckets[0].m.element_size())
         return ms, by, pb["io"]
+    d = 1 if x.ndim == 1 else x.shape[1]
     nbytes = (sum(b.m.numel() * b.m.element_size()
                   + b.win_start.numel() * b.win_start.element_size()
                   for b in buckets)
-              + 4 * padded_length(buckets[0], x.shape[0])
-              + 4 * sum(b.m.shape[0] * b.block for b in buckets))
-    ms, by = bound(nbytes, 2 * sum(b.m.numel() for b in buckets))
+              + 4 * d * padded_length(buckets[0], x.shape[0])
+              + 4 * d * sum(b.m.shape[0] * b.block for b in buckets))
+    ms, by = bound(nbytes, 2 * d * sum(b.m.numel() for b in buckets))
     return ms, by, nbytes
 
 
 def library_bmm(buckets, x):
     """One ``torch.bmm`` per bucket on already gathered windows: the
     library's time for the same products (f32 m only; the gather of x,
-    the escape chute and the un-permutation are not in it).  The port
-    never calls it.  Returns the function to time."""
+    the escape chute and the un-permutation are not in it).  For a
+    (n_cols, D) x on 8-row blocks: m (NBLK, 8, NWW) @ windows (NBLK,
+    NWW, D).  The port never calls it.  Returns the function to time."""
+    if x.ndim == 2:
+        d = x.shape[1]
+        x3 = pad_x(buckets[0], x).view(-1, 128, d)
+        pairs = [(b.m, x3[b.win_start.long() // 128]
+                  .reshape(b.m.shape[0], -1, d).contiguous())
+                 for b in buckets]
+        return lambda: [torch.bmm(m, w) for m, w in pairs]
     x2 = pad_x(buckets[0], x).view(-1, 128)
     pairs = []
     for b in buckets:
@@ -122,9 +132,9 @@ def library_bmm(buckets, x):
 
 
 def bucket_loop(fn, buckets, x):
-    """One slab matvec's bucket calls of ``fn(bucket, x, xp)``, x padded
-    once per matvec as ``slab_matvec`` pads it.  Returns the function to
-    time."""
+    """One slab matvec's bucket calls of ``fn(bucket, x, xp)``, x ((n,)
+    or (n, D)) padded once per matvec as ``slab_matvec`` pads it.
+    Returns the function to time."""
     def run():
         xp = pad_x(buckets[0], x)
         for b in buckets:

@@ -37,7 +37,7 @@ import torch
 
 from gravomg_tpu_torch.config import BARYCENTRIC, UNIFORM
 from gravomg_tpu_torch.types import (INVALID_INDEX, Prolongation,
-                                     Restriction, TriangleSet,
+                                     Restriction, TriangleSet, batched_take,
                                      safe_gather_index)
 
 # (fine point, candidate triangle) pairs one block holds.
@@ -249,7 +249,11 @@ def projected_points(u_op: Prolongation,
 
 
 def prolong(u_op: Prolongation, coarse_values: torch.Tensor) -> torch.Tensor:
-    """fine = U @ coarse; coarse_values is (n_coarse,) or (n_coarse, D)."""
+    """fine = U @ coarse; coarse_values is (n_coarse,) or (n_coarse, D),
+    or (B, n_coarse) for a stack of operators (leading mesh axis)."""
+    if u_op.cols.ndim == 3:
+        return torch.sum(u_op.weights
+                         * batched_take(coarse_values, u_op.cols), dim=2)
     gathered = coarse_values[u_op.cols]            # (Vf, 3[, D])
     if coarse_values.ndim == 1:
         return torch.sum(u_op.weights * gathered, dim=1)
@@ -257,7 +261,14 @@ def prolong(u_op: Prolongation, coarse_values: torch.Tensor) -> torch.Tensor:
 
 
 def restrict(u_op: Prolongation, fine_values: torch.Tensor) -> torch.Tensor:
-    """coarse = U^T @ fine, scatter form (``index_add_``)."""
+    """coarse = U^T @ fine, scatter form (``index_add_``; a stack of
+    operators scatters each mesh's row with ``scatter_add_``)."""
+    if u_op.cols.ndim == 3:
+        b = fine_values.shape[0]
+        contrib = u_op.weights * fine_values[:, :, None]
+        out = fine_values.new_zeros((b, u_op.n_coarse))
+        return out.scatter_add_(1, u_op.cols.reshape(b, -1).long(),
+                                contrib.reshape(b, -1))
     cols = u_op.cols.reshape(-1)
     if fine_values.ndim == 1:
         contrib = (u_op.weights * fine_values[:, None]).reshape(-1)
@@ -304,8 +315,11 @@ def build_restriction(u_op: Prolongation,
 
 def restrict_gather(rt: Restriction,
                     fine_values: torch.Tensor) -> torch.Tensor:
-    """U^T via the children table: a fixed-shape gather + row reduce."""
+    """U^T via the children table: a fixed-shape gather + row reduce
+    (per mesh for a stack of tables and a (B, n_fine) input)."""
     safe = rt.safe_rows()
+    if safe.ndim == 3:
+        return torch.sum(rt.weights * batched_take(fine_values, safe), dim=2)
     if fine_values.ndim == 1:
         return torch.sum(rt.weights * fine_values[safe], dim=1)
     return torch.einsum("ck,ckd->cd", rt.weights, fine_values[safe])

@@ -32,8 +32,10 @@ def factor_coarse(op: EllOperator,
 
 
 def coarse_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve (L L^T) x = b for (n,) or (n, D) b."""
-    rhs = b[:, None] if b.ndim == 1 else b
+    """Solve (L L^T) x = b for (n,) or (n, D) b; for a stack of factors
+    (B, n, n), (B, n) b, each mesh against its own factor."""
+    vec = b.ndim == chol.ndim - 1
+    rhs = b[..., None] if vec else b
     y = torch.linalg.solve_triangular(chol, rhs, upper=False)
-    x = torch.linalg.solve_triangular(chol.T, y, upper=True)
-    return x[:, 0] if b.ndim == 1 else x
+    x = torch.linalg.solve_triangular(chol.mT, y, upper=True)
+    return x[..., 0] if vec else x

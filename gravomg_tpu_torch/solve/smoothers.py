@@ -1,5 +1,9 @@
 """Smoothers: weighted Jacobi and Chebyshev (counterpart of
-``gravomg_tpu/solve/smoothers.py``)."""
+``gravomg_tpu/solve/smoothers.py``).
+
+Both take a stack of operators too (leading mesh axis,
+``parallel/batch.py``) with a (B, V) x; a stack's Chebyshev bounds are
+(B,) tensors, one interval per mesh, as JAX's vmap keeps them."""
 
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ def weighted_jacobi(op: EllOperator, x: torch.Tensor, b: torch.Tensor,
     if mv is None:
         mv = lambda y: spmv(op, y)  # noqa: E731
     dinv = 1.0 / op.diag
-    if x.ndim > 1:
+    if x.ndim > dinv.ndim:
         dinv = dinv[:, None]
     start = 0
     if x0_zero and iterations >= 1:
@@ -74,7 +78,8 @@ def gershgorin_lambda_max(op: EllOperator) -> torch.Tensor:
 
 class ChebyshevParams(NamedTuple):
     """Smoothing interval [lambda_max/ratio, lambda_max] of D^{-1} A, as
-    host floats (read once at setup, never synchronised in a cycle)."""
+    host floats (read once at setup, never synchronised in a cycle); in
+    a stack of hierarchies, (B,) float64 tensors on the device."""
     lam_min: float
     lam_max: float
 
@@ -95,20 +100,28 @@ def chebyshev(op: EllOperator, x: torch.Tensor, b: torch.Tensor,
     if mv is None:
         mv = lambda y: spmv(op, y)  # noqa: E731
     dinv = 1.0 / op.diag
-    if x.ndim > 1:
+    if x.ndim > dinv.ndim:
         dinv = dinv[:, None]
-    theta = 0.5 * (params.lam_max + params.lam_min)
-    delta = 0.5 * (params.lam_max - params.lam_min)
+    lo, hi = params.lam_min, params.lam_max
+    if isinstance(hi, torch.Tensor):
+        # A stack: the recurrence's coefficients per mesh, in float64 as
+        # the host floats are, rounded to x's dtype where they are used.
+        lo, hi = lo[:, None], hi[:, None]
+        cast = lambda c: c.to(x.dtype)  # noqa: E731
+    else:
+        cast = lambda c: c  # noqa: E731
+    theta = 0.5 * (hi + lo)
+    delta = 0.5 * (hi - lo)
     sigma = theta / delta
     rho = 1.0 / sigma
 
     r = dinv * b if x0_zero else dinv * (b - mv(x))
-    d = r / theta
+    d = r / cast(theta)
     x = x + d
     for _ in range(degree - 1):
         r = dinv * (b - mv(x))
         rho_next = 1.0 / (2.0 * sigma - rho)
-        d = rho_next * rho * d + (2.0 * rho_next / delta) * r
+        d = cast(rho_next * rho) * d + cast(2.0 * rho_next / delta) * r
         x = x + d
         rho = rho_next
     return x

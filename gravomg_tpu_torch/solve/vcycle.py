@@ -6,6 +6,19 @@ U^T through the block-window kernel (the transposed-tile kernel for the
 ``mxu`` form); ``attach_fast_operators`` gives the levels that have none
 the uniform block-dense forms; what has neither uses the ELL gather forms.
 The cycle is a plain Python recursion over the levels.
+
+A 2-D x (V, D) takes a level's fast form too when it is an 8-row slab
+form (through the batched kernel B1, m read once for up to 64 columns) or
+a uniform form; an ``mxu`` form leaves it on the ELL gather.  JAX's own
+(V, D) branch keeps ELL (``gravomg_tpu/solve/vcycle.py:55``), but its
+c5 recipe vmaps the 1-D cycle over the columns, which reaches the slab
+form's kernel with one column at a time: B1 is the card's counterpart of
+that, and the (V, D) cycle computes the same function as both.  No JAX
+recipe vmaps the transposed-tile kernel.
+
+A stack of hierarchies (``parallel/batch.py``: a leading mesh axis on
+every tensor, uniform forms only) runs through the same functions with
+a (B, V) x.
 """
 
 from __future__ import annotations
@@ -50,15 +63,24 @@ class SolverHierarchy(NamedTuple):
 
 
 def apply_fast(op: FastOperator, x: torch.Tensor) -> torch.Tensor:
-    """A slab or uniform block-dense form on a 1-D vector."""
+    """A slab or uniform block-dense form on x (see :func:`takes`)."""
     if isinstance(op, SlabOperator):
         return slab_matvec(op, x)
     return blockdense_matvec(op, x)
 
 
+def takes(op: Optional[FastOperator], x: torch.Tensor) -> bool:
+    """Whether the fast form ``op`` applies to x: every form takes a 1-D
+    x; a 2-D x every form but the transposed-tile (``mxu``) one."""
+    if op is None:
+        return False
+    return x.ndim == 1 or not (isinstance(op, SlabOperator) and op.mxu)
+
+
 def level_matvec(level: SolverLevel, x: torch.Tensor) -> torch.Tensor:
-    """A_l @ x through the slab or uniform form when present, else ELL."""
-    if level.banded is not None and x.ndim == 1:
+    """A_l @ x through the slab or uniform form when it takes x, else
+    ELL."""
+    if takes(level.banded, x):
         return apply_fast(level.banded, x)
     return spmv(level.op, x)
 
@@ -66,7 +88,7 @@ def level_matvec(level: SolverLevel, x: torch.Tensor) -> torch.Tensor:
 def _smooth(level: SolverLevel, x, b, iters: int, cfg: MultigridConfig,
             x0_zero: bool = False):
     mv = None
-    if level.banded is not None and x.ndim == 1:
+    if takes(level.banded, x):
         mv = functools.partial(level_matvec, level)
     if cfg.smoother == "chebyshev":
         return chebyshev(level.op, x, b, level.cheb, cfg.chebyshev_degree,
@@ -75,51 +97,48 @@ def _smooth(level: SolverLevel, x, b, iters: int, cfg: MultigridConfig,
                            x0_zero=x0_zero)
 
 
-def _restrict_level(level: SolverLevel, r: torch.Tensor,
-                    one_d: bool) -> torch.Tensor:
-    if level.utw is not None and one_d:
+def _restrict_level(level: SolverLevel, r: torch.Tensor) -> torch.Tensor:
+    if takes(level.utw, r):
         return apply_fast(level.utw, r)
     if level.ut is not None:
         return restrict_gather(level.ut, r)
     return restrict(level.u, r)
 
 
-def _prolong_level(level: SolverLevel, ec: torch.Tensor,
-                   one_d: bool) -> torch.Tensor:
-    if level.uw is not None and one_d:
+def _prolong_level(level: SolverLevel, ec: torch.Tensor) -> torch.Tensor:
+    if takes(level.uw, ec):
         return apply_fast(level.uw, ec)
     return prolong(level.u, ec)
 
 
 def _descend(h: SolverHierarchy, lvl: int, x: torch.Tensor, b: torch.Tensor,
-             cfg: MultigridConfig, one_d: bool,
-             x0_zero: bool = False) -> torch.Tensor:
+             cfg: MultigridConfig, x0_zero: bool = False) -> torch.Tensor:
     """One multigrid cycle starting (and ending) at level ``lvl``."""
     level = h.levels[lvl]
     if lvl == len(h.levels) - 1:
         return coarse_solve(h.coarse_chol, b)
     x = _smooth(level, x, b, cfg.pre_smooth, cfg, x0_zero=x0_zero)
-    r = b - (level_matvec(level, x) if one_d else spmv(level.op, x))
-    rc = _restrict_level(level, r, one_d)
+    r = b - level_matvec(level, x)
+    rc = _restrict_level(level, r)
     # Coarse corrections start from zero: x0_zero saves their
     # pre-smooth's first matvec (A 0 = 0 exactly).
-    ec = _descend(h, lvl + 1, torch.zeros_like(rc), rc, cfg, one_d,
-                  x0_zero=True)
+    ec = _descend(h, lvl + 1, torch.zeros_like(rc), rc, cfg, x0_zero=True)
     # gamma-cycle: revisit the coarser level gamma-1 more times; repeats
     # directly above the coarsest level would repeat an exact solve.
     if lvl + 1 < len(h.levels) - 1:
         for _ in range(cfg.cycle_gamma - 1):
-            ec = _descend(h, lvl + 1, ec, rc, cfg, one_d)
-    x = x + _prolong_level(level, ec, one_d)
+            ec = _descend(h, lvl + 1, ec, rc, cfg)
+    x = x + _prolong_level(level, ec)
     return _smooth(level, x, b, cfg.post_smooth, cfg)
 
 
 def v_cycle(h: SolverHierarchy, x: torch.Tensor, b: torch.Tensor,
             cfg: MultigridConfig, x0_zero: bool = False) -> torch.Tensor:
     """One cycle on the finest level (V-cycle; W and deeper via
-    ``cfg.cycle_gamma``).  ``x0_zero=True`` asserts ``x`` is exactly zero
-    and saves the fine pre-smooth's first matvec."""
-    return _descend(h, 0, x, b, cfg, x.ndim == 1, x0_zero=x0_zero)
+    ``cfg.cycle_gamma``) for x, b (V,) or (V, D).  ``x0_zero=True``
+    asserts ``x`` is exactly zero and saves the fine pre-smooth's first
+    matvec."""
+    return _descend(h, 0, x, b, cfg, x0_zero=x0_zero)
 
 
 def solve(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
@@ -146,15 +165,14 @@ def fmg(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
     with ``cycles_per_level`` gamma-cycles at every level on the way up.
     One pass costs about two V-cycles; its result is a first guess for
     :func:`solve` or the Krylov solvers."""
-    one_d = b.ndim == 1
     bs = [b]
     for level in h.levels[:-1]:
-        bs.append(_restrict_level(level, bs[-1], one_d))
+        bs.append(_restrict_level(level, bs[-1]))
     x = coarse_solve(h.coarse_chol, bs[-1])
     for lvl in range(len(h.levels) - 2, -1, -1):
-        x = _prolong_level(h.levels[lvl], x, one_d)
+        x = _prolong_level(h.levels[lvl], x)
         for _ in range(cycles_per_level):
-            x = _descend(h, lvl, x, bs[lvl], cfg, one_d)
+            x = _descend(h, lvl, x, bs[lvl], cfg)
     return x
 
 

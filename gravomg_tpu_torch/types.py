@@ -10,7 +10,10 @@ between the two packages unchanged:
   * valid entries of a row are ascending by column index;
   * no self-loops are stored; operators carry their diagonal apart.
 
-Plain ``NamedTuple``s of tensors; nothing here needs autograd.
+Plain ``NamedTuple``s of tensors; nothing here needs autograd.  A
+stack of same-shape containers (``parallel/batch.py``) carries a leading
+mesh axis on every tensor; the size properties read the trailing axes,
+so they hold for a stack too.
 """
 
 from __future__ import annotations
@@ -25,6 +28,13 @@ INVALID_INDEX = 2**31 - 1
 def safe_gather_index(idx: torch.Tensor) -> torch.Tensor:
     """Replace INVALID_INDEX slots with 0 so gathers stay in bounds."""
     return torch.where(idx != INVALID_INDEX, idx, torch.zeros_like(idx))
+
+
+def batched_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[i][idx[i]]`` for every i of a leading batch axis: x (B, N),
+    idx (B, ...) in range; returns idx's shape in x's dtype."""
+    b = x.shape[0]
+    return torch.gather(x, 1, idx.reshape(b, -1).long()).reshape(idx.shape)
 
 
 class Graph(NamedTuple):
@@ -70,7 +80,7 @@ class Prolongation(NamedTuple):
 
     @property
     def n_fine(self) -> int:
-        return self.cols.shape[0]
+        return self.cols.shape[-2]
 
 
 class Restriction(NamedTuple):
@@ -87,7 +97,7 @@ class Restriction(NamedTuple):
 
     @property
     def n_coarse(self) -> int:
-        return self.rows.shape[0]
+        return self.rows.shape[-2]
 
     @property
     def mask(self) -> torch.Tensor:
@@ -111,11 +121,11 @@ class EllOperator(NamedTuple):
 
     @property
     def num_vertices(self) -> int:
-        return self.diag.shape[0]
+        return self.diag.shape[-1]
 
     @property
     def max_degree(self) -> int:
-        return self.neighbors.shape[1]
+        return self.neighbors.shape[-1]
 
     @property
     def mask(self) -> torch.Tensor:

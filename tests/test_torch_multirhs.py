@@ -7,8 +7,10 @@ with the same iteration count, the residual of the whole array at rtol
 1e-9 and the solution at 1e-9.  Each column of the 2-D cycle equals the
 1-D cycle of that column alone at 1e-12 of its largest entry (the
 fixture has no fast forms, so both take the ELL path).  With slab forms
-attached a 2-D x still takes the ELL forms: its cycle is the same as
-without them.
+attached a 2-D x takes them too (the batched block-window twin on the
+CPU): each column of its cycle equals the 1-D slab cycle of that column
+at 1e-12 of its largest entry, and its stationary solve takes the ELL
+solve's iteration count, the solution at 1e-9 (summation order only).
 """
 
 import os
@@ -81,8 +83,15 @@ def test_multi_rhs_columns_and_fast_forms(tmp_path):
 
     hs = gt.attach_slab_operators(ht)
     assert hs.levels[0].banded is not None and hs.levels[0].uw is not None
-    assert torch.equal(gt.v_cycle(hs, torch.zeros_like(b), b, cfg), x2)
+    xs = gt.v_cycle(hs, torch.zeros_like(b), b, cfg)
+    for j in range(3):
+        x1 = gt.v_cycle(hs, torch.zeros_like(b[:, j]), b[:, j], cfg)
+        torch.testing.assert_close(xs[:, j], x1, rtol=0,
+                                   atol=1e-12 * float(x1.abs().max()))
     kw = gt.MultigridConfig(max_cycles=3, tolerance=1e-12, **KW)
     xa, rel_a, it_a = gt.solve(hs, b, kw)
     xb, rel_b, it_b = gt.solve(ht, b, kw)
-    assert it_a == it_b == 3 and rel_a == rel_b and torch.equal(xa, xb)
+    assert it_a == it_b == 3
+    np.testing.assert_allclose(rel_a, rel_b, rtol=1e-9)
+    torch.testing.assert_close(xa, xb, rtol=0,
+                               atol=1e-9 * float(xb.abs().max()))

@@ -1,7 +1,8 @@
-"""Phases 13 and 14 of chip_smoke.py (the apps, LOBPCG) on the CPU at a
-small n, so that a fault of the script's own bookkeeping shows before a
-run on the card.  The kernel's launch count is not asserted here: the
-CPU takes the plain twins."""
+"""Phases 13-16 of chip_smoke.py (the apps, LOBPCG, many right-hand
+sides on one hierarchy, a stacked mesh collection) on the CPU at a small
+n, so that a fault of the script's own bookkeeping shows before a run on
+the card.  The kernels' launch counts are not asserted here: the CPU
+takes the plain twins, and gives no device time (the times are None)."""
 
 import importlib.util
 import os
@@ -33,3 +34,16 @@ def test_apps_and_lobpcg_phases_on_cpu():
     assert 1 <= lob["iters"] == len(lob["block_s"]) == len(lob["rr_s"]) <= 40
     assert lob["orth_err"] <= 1e-4 and lob["peak_bytes"] is None
     assert len(lob["lams"]) == 12
+
+
+def test_batch_phases_on_cpu():
+    cs = _chip_smoke()
+    rhs = cs.phase_rhs_batch(torch, "cpu", 3000, 4)
+    assert rhs["n"] == 3000 and rhs["d"] == 4
+    assert rhs["worst_column_rel"] <= cs.TOL_COLUMNS
+    assert rhs["batch_ms"] is None and rhs["b1_launches"] == 0
+    mesh = cs.phase_meshes(torch, "cpu", 4, 1000)
+    assert mesh["meshes"] == 4 and mesh["padded_rows_zero"]
+    assert mesh["worst_mesh_rel"] <= cs.TOL_COLUMNS
+    assert mesh["padded_rows"] == mesh["real_rows_max"]
+    assert 1 <= mesh["solve_iters"] <= 200 and mesh["peak_bytes"] is None
