@@ -92,13 +92,17 @@ script exits nonzero:
      finite and ascending, max|X^T M X - I| <= 1e-4, |lam_0| <= 1e-3 *
      lam_11;
  15. many right-hand sides on one hierarchy, B1 (the batched
-     block-window kernel): (b), run right after phase 13 on phase 3's 1M
-     hierarchy, one (V, 64) V-cycle against one 1-D cycle (times, B1's
-     launches, a profile), the (V, 64) and (V, 3) cycles against the
-     same cycles on the ELL forms alone, B1 against its twin on every
-     bucket of every slab form at D 3 and 64, f32 and bf16 m, at 1e-6 *
-     max|Y| and bitwise repeatable, and B1 on level-0 A (per call, alone, twin,
-     library, bytes, multiply-adds, bound and share, D 3 and 64); (a),
+     block-window kernel, one launch a slab matvec): (b), run right
+     after phase 13 on phase 3's 1M hierarchy, the share of nonzero
+     (block, position) pairs of every 8-row slab form, one (V, 64)
+     V-cycle against one 1-D cycle (times, B1's launches beside the
+     number of slab matvecs, which must be equal, a profile), the (V, 64)
+     and (V, 3) cycles against the same cycles on the ELL forms alone, B1
+     against its twin on every slab form at D 3 and 64, f32 and bf16 m,
+     per bucket and in one launch a form, at 1e-6 * max|Y| and bitwise
+     repeatable, B1 on level-0 A in one launch (per call, alone, twin,
+     the per-bucket route, library, bytes, multiply-adds on nonzero
+     positions, bound and share, D 3 and 64); (a),
      after phase 14, the c5 recipe of scripts/bench_configs.py uncut
      (20,000 points, 64 right-hand sides): one (V, 64) V-cycle against
      the 64 1-D cycles of its columns, each column within 1e-5 of its
@@ -118,8 +122,10 @@ A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
 published 3.35 TB/s, or its multiply-adds (two operations each) over the
 published 67 TFLOP/s of f32 outside the tensor cores, whichever is
-larger (bytes for K1, K2 and the gather kernel; for B1 it depends on D);
-gravomg_tpu_torch/probes/timing.py computes it.
+larger (bytes for all four: B1's multiply-adds are counted on the
+positions it multiplies, those where a block's 8 rows hold a nonzero);
+gravomg_tpu_torch/probes/timing.py computes it.  A share of the bound
+above 1.05 means a count is wrong, and fails the run.
 
 The line before the last is a JSON object describing the four kernels;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -148,6 +154,7 @@ FIELDS = (("banded", "A"), ("uw", "U"), ("utw", "U^T"))
 C5_N, C5_D = 20_000, 64          # phase 15 (a), the c5 recipe
 C5B_MESHES, C5B_N = 64, 5_000    # phase 16, the c5b recipe
 TOL_COLUMNS = 1e-5               # a batched cycle against its own cycles
+MAX_SHARE = 1.05                 # above it a bound's count is wrong
 
 
 def _run(cmd):
@@ -1235,28 +1242,37 @@ def phase_rhs_batch(torch, device, n, d):
 
 
 def _check_matmat(torch, slabs, ds, tag):
-    """B1 against its twin on every bucket of every slab form in
-    ``slabs`` at each D of ``ds``, f32 and bf16 m, at ``TOL_KERNEL``;
-    each bucket twice on one input, the two Y bitwise equal."""
+    """B1 against its twin on every slab form in ``slabs`` at each D of
+    ``ds``, f32 and bf16 m, at ``TOL_KERNEL``, each call twice on one
+    input and the two Y bitwise equal: over each bucket alone
+    (``blockdense_matmat_cuda`` against ``blockdense_matmat_plain``), and
+    in one launch over all buckets of the form (``slab_matmat_cuda``
+    against ``slab_matmat_plain``)."""
     from gravomg_tpu_torch.ops.blockdense import pad_x
     from gravomg_tpu_torch.ops.blockdense_cuda import (
-        blockdense_matmat_cuda, blockdense_matmat_plain)
+        blockdense_matmat_cuda, blockdense_matmat_plain, slab_matmat_cuda,
+        slab_matmat_plain)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    worst_rel, worst_abs, n = 0.0, 0.0, 0
+    worst_rel, worst_abs, n, n_forms = 0.0, 0.0, 0, 0
     for label, sop in slabs:
         for d in ds:
             x = torch.randn((sop.n_cols, d), generator=gen, device="cuda")
             xp = pad_x(sop.buckets[0], x)
             for dt in (torch.float32, torch.bfloat16):
-                for b in sop.buckets:
-                    bb = _bucket_on(b, dt)
-                    y1 = blockdense_matmat_cuda(bb, x, xp)
-                    y2 = blockdense_matmat_cuda(bb, x, xp)
-                    yp = blockdense_matmat_plain(bb, x, xp)
+                sd = _slab_on(sop, dt)
+                cases = [(f"cap {b.nw}",
+                          lambda b=b: blockdense_matmat_cuda(b, x, xp),
+                          lambda b=b: blockdense_matmat_plain(b, x, xp))
+                         for b in sd.buckets]
+                cases.append(("one launch",
+                              lambda: slab_matmat_cuda(sd, x),
+                              lambda: slab_matmat_plain(sd, x)))
+                for what, kern, plain in cases:
+                    y1, y2, yp = kern(), kern(), plain()
                     torch.cuda.synchronize()
                     if not torch.equal(y1, y2):
-                        raise AssertionError(f"B1 on {label} cap {b.nw} "
-                                             f"D={d}: two runs differ")
+                        raise AssertionError(f"B1 on {label} {what} D={d}: "
+                                             f"two runs differ")
                     err = float((y1 - yp).abs().max())
                     rel = err / max(float(yp.abs().max()), 1e-30)
                     worst_rel = max(worst_rel, rel)
@@ -1264,40 +1280,87 @@ def _check_matmat(torch, slabs, ds, tag):
                     n += 1
                     if not rel <= TOL_KERNEL:
                         raise AssertionError(
-                            f"B1 vs twin on {label} cap {b.nw} D={d} "
+                            f"B1 vs twin on {label} {what} D={d} "
                             f"{_dtype_name(dt)}: {rel:.3e} > {TOL_KERNEL}")
+                n_forms += 1
     if not n:
         raise AssertionError("no slab form to check B1 on")
-    print(f"[{tag}] B1 vs twin ok on {n} (bucket, D, dtype) cases of "
-          f"{len(slabs)} slab forms, D {list(ds)}, f32 and bf16 m, bitwise "
-          f"repeatable, worst {worst_rel:.3e} <= {TOL_KERNEL}")
-    return {"cases": n, "worst_rel": worst_rel, "worst_abs": worst_abs}
+    print(f"[{tag}] B1 vs twin ok on {n} cases of {len(slabs)} slab forms "
+          f"({n - n_forms} per bucket, {n_forms} in one launch a form), D "
+          f"{list(ds)}, f32 and bf16 m, bitwise repeatable, worst "
+          f"{worst_rel:.3e} <= {TOL_KERNEL}")
+    return {"cases": n, "one_launch_cases": n_forms, "worst_rel": worst_rel,
+            "worst_abs": worst_abs}
+
+
+def _nonzero_positions(slabs, tag):
+    """Per 8-row slab form: the share of its (block, position) pairs
+    where one of the block's 8 rows holds a nonzero (what B1 multiplies),
+    and the share of m's entries that are nonzero."""
+    from gravomg_tpu_torch.probes.timing import nonzero_pairs
+    out = {}
+    for label, sop in slabs:
+        pairs = nonzero_pairs(sop.buckets)
+        total = sum(b.m.shape[0] * b.m.shape[2] for b in sop.buckets)
+        nnz = sum(int((b.m != 0).sum()) for b in sop.buckets)
+        out[label] = {"pairs": pairs, "positions": total,
+                      "pair_share": pairs / total,
+                      "entry_share": nnz / (8 * total)}
+    print(f"[{tag}] nonzero (block, position) pairs / all, and nonzero "
+          f"entries of m / all, per 8-row slab form: " + "; ".join(
+              f"{k} {v['pair_share']:.4f} / {v['entry_share']:.4f}"
+              for k, v in out.items()))
+    return out
+
+
+def _count_slab_matvecs(torch, fn):
+    """(result of fn(), number of 2-D x the 8-row slab forms took in it),
+    counted at the cycle's call of ``slab_matvec``."""
+    from gravomg_tpu_torch.solve import vcycle as vc
+    inner, count = vc.slab_matvec, [0]
+
+    def counted(op, x):
+        if x.ndim == 2 and not op.mxu:
+            count[0] += 1
+        return inner(op, x)
+    vc.slab_matvec = counted
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        vc.slab_matvec = inner
+    return res, count[0]
 
 
 def phase_rhs_1m(torch, cfg, h):
     """Phase 15 (b), on the card: phase 3's 1M hierarchy (slab forms)
-    with D=64 right-hand sides (a generator seeded 0): one (V, 64)
-    V-cycle against one 1-D cycle, with B1's launches and a profile;
-    the (V, 64) and (V, 3) cycles through B1 against the same cycles on
-    the ELL forms alone (the route a 2-D x took before B1); B1 against
-    its twin on every bucket of every slab form at D 3 and 64; and B1
-    on level-0 A, f32 and bf16 m, D 3 and 64: per call, alone, plain
-    twin, library (f32), bytes, multiply-adds, bound."""
+    with D=64 right-hand sides (a generator seeded 0): the share of
+    nonzero positions of every 8-row slab form; one (V, 64) V-cycle
+    against one 1-D cycle, with B1's launches beside the number of slab
+    matvecs and a profile; the (V, 64) and (V, 3) cycles through B1
+    against the same cycles on the ELL forms alone (the route a 2-D x
+    took before B1); B1 against its twin on every slab form at D 3 and
+    64, per bucket and in one launch; and B1 on level-0 A, f32 and bf16
+    m, D 3 and 64, in one launch: per call, alone, plain twin, the
+    per-bucket route, library (f32), bytes, multiply-adds, bound and
+    share."""
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.blockdense_cuda import (
-        blockdense_matmat_cuda, blockdense_matmat_plain)
+        blockdense_matmat_cuda, slab_matmat_cuda, slab_matmat_plain)
     from gravomg_tpu_torch.parallel.sharding import drop_fast_forms
     from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
                                                  kernel_ms, library_bmm,
-                                                 matvec_bound)
+                                                 matvec_bound, nonzero_pairs)
     d = 64
+    out = {"nonzero": _nonzero_positions(_slabs(h), "15")}
     gen = torch.Generator(device="cuda").manual_seed(0)
     b = torch.randn((N, d), generator=gen, device="cuda")
     b1 = b[:, 0].contiguous()
     blockdense_matmat_cuda.launches = 0
-    x = gt.v_cycle(h, torch.zeros_like(b), b, cfg)
-    torch.cuda.synchronize()
-    out = {"launches": blockdense_matmat_cuda.launches}
+    x, matvecs = _count_slab_matvecs(
+        torch, lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
+    out.update(launches=blockdense_matmat_cuda.launches,
+               slab_matvecs=matvecs)
     cols = [gt.v_cycle(h, torch.zeros_like(b1), b1, cfg)]
     out["worst_column_rel"] = _worst_column(x[:, :1], cols)
     finite = bool(torch.isfinite(x).all())
@@ -1309,11 +1372,11 @@ def phase_rhs_1m(torch, cfg, h):
           f"{out['vcycle64_ms']:.3f} ms ({out['vcycle64_ms'] / d:.3f} ms a "
           f"right-hand side) against one 1-D cycle {out['vcycle1_ms']:.3f} "
           f"ms (CUDA events, median of 10); B1 launches in one (V, {d}) "
-          f"cycle {out['launches']}; column 0 vs its 1-D cycle "
-          f"{out['worst_column_rel']:.3e}; finite {finite}")
+          f"cycle {out['launches']} for {matvecs} slab matvecs; column 0 "
+          f"vs its 1-D cycle {out['worst_column_rel']:.3e}; finite {finite}")
     h_ell = drop_fast_forms(h)
     b3 = b[:, :3].contiguous()
-    # The ELL (V, 64) cycle takes about half a second: three timed runs.
+    # The ELL (V, 64) cycle takes about 300 ms: three timed runs.
     out["vcycle64_ell_ms"] = cuda_ms(
         lambda: gt.v_cycle(h_ell, torch.zeros_like(b), b, cfg), reps=3,
         warmup=1)
@@ -1330,6 +1393,9 @@ def phase_rhs_1m(torch, cfg, h):
         raise AssertionError("the 1M (V, 64) cycle failed its checks")
     if out["launches"] <= 0:
         raise AssertionError("the 1M (V, 64) cycle never launched B1")
+    if out["launches"] != matvecs:
+        raise AssertionError(f"B1 launched {out['launches']} times for "
+                             f"{matvecs} slab matvecs, not once each")
     out["profile"] = _profile_vcycle(torch, cfg, h, b, out["vcycle64_ms"],
                                      "15")
     del x, cols
@@ -1338,22 +1404,25 @@ def phase_rhs_1m(torch, cfg, h):
     for dd in (3, d):
         xx = torch.randn((N, dd), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
-            bs = [_bucket_on(bk, dt) for bk in a0.buckets]
-            kern = bucket_loop(blockdense_matmat_cuda, bs, xx)
-            plain = bucket_loop(blockdense_matmat_plain, bs, xx)
+            sd = _slab_on(a0, dt)
+            bs = list(sd.buckets)
+            kern = lambda: slab_matmat_cuda(sd, xx)
+            plain = lambda: slab_matmat_plain(sd, xx)
             p1 = cuda_ms(plain)
             k1 = cuda_ms(kern)
             k2 = cuda_ms(kern)
             p2 = cuda_ms(plain)
+            per_bucket = cuda_ms(bucket_loop(blockdense_matmat_cuda, bs, xx))
             alone = kernel_ms(kern, "blockdense_matmat_kernel")
             bound_ms, bound_by, io_bytes = matvec_bound(bs, xx)
-            madds = dd * sum(bk.m.numel() for bk in bs)
+            madds = 8 * dd * nonzero_pairs(bs)
             # No library call for bf16 m: torch.bmm in bf16 rounds X.
             lib = (cuda_ms(library_bmm(bs, xx)) if dt == torch.float32
                    else None)
             name = f"D{dd} {_dtype_name(dt)}"
             k_ms = min(k1, k2)
             out[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                         "per_bucket_ms": per_bucket,
                          "alone_ms": alone, "io_bytes": io_bytes,
                          "multiply_adds": madds, "bound_ms": bound_ms,
                          "bound_by": bound_by,
@@ -1361,10 +1430,11 @@ def phase_rhs_1m(torch, cfg, h):
                          "alone_share_of_bound": (None if alone is None
                                                   else bound_ms / alone),
                          "library_ms": lib}
-            print(f"[15] B1 level-0 A ({len(bs)} buckets) {name}: per call "
-                  f"{k1:.3f}/{k2:.3f} ms (escape and diagonal included), "
-                  f"kernels alone {_fmt(alone)} ms; twin {p1:.3f}/{p2:.3f} "
-                  f"ms; {io_bytes} bytes, {madds} multiply-adds, bound "
+            print(f"[15] B1 level-0 A ({len(bs)} buckets, one launch) "
+                  f"{name}: per call {k1:.3f}/{k2:.3f} ms, kernel alone "
+                  f"{_fmt(alone)} ms; twin {p1:.3f}/{p2:.3f} ms; per-bucket "
+                  f"route {per_bucket:.3f} ms; {io_bytes} bytes, {madds} "
+                  f"multiply-adds (nonzero positions), bound "
                   f"{bound_ms:.3f} ms ({bound_by}), share "
                   f"{bound_ms / k_ms:.2f} (alone "
                   f"{_fmt(out[name]['alone_share_of_bound'], 2)}); "
@@ -1474,6 +1544,38 @@ def phase_meshes(torch, device, n_meshes, n):
                              f"{padded_zero}, meshes vs own cycles "
                              f"{worst:.3e}")
     return out
+
+
+def _share_rows(obj, path=""):
+    """(path, row) for every timed row of the report: a dict with a
+    share of its bound and the bytes that bound counts."""
+    if isinstance(obj, dict):
+        if "share_of_bound" in obj and "io_bytes" in obj:
+            yield path, obj
+        for k, v in obj.items():
+            yield from _share_rows(v, f"{path}/{k}")
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from _share_rows(v, f"{path}/{i}")
+
+
+def _check_shares(kernels, report):
+    """Raise if a kernel reads faster than its bound allows (a share of
+    the bound above ``MAX_SHARE``): its count of bytes or operations is
+    wrong.  Every kernel of the kernels line, and every timed row of the
+    report, per call and alone (the rows whose working set fits in L2
+    are timed with L2 flushed before each run, so a bound by device
+    memory holds for them too)."""
+    shares = {k["name"]: k["bound_ms"] / k["ms"] for k in kernels}
+    for path, row in _share_rows(report):
+        shares[path] = row["share_of_bound"]
+        if row.get("alone_share_of_bound") is not None:
+            shares[f"{path} alone"] = row["alone_share_of_bound"]
+    over = {k: v for k, v in shares.items() if v > MAX_SHARE}
+    if over:
+        raise AssertionError(f"share of the bound above {MAX_SHARE}: {over}")
+    print(f"[done] {len(shares)} shares of a bound checked, largest "
+          f"{max(shares.values()):.2f} <= {MAX_SHARE}")
 
 
 def main() -> int:
@@ -1608,6 +1710,7 @@ def main() -> int:
         "bound_by": b32["bound_by"],
         "library_ms": b32["library_ms"],
     }]}
+    _check_shares(kernels["kernels"], report)
     print(f"[done] {report['total_s']:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

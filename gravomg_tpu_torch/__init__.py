@@ -6,8 +6,9 @@ as are the transposed-tile SpMV of the ``mxu`` slab form
 (``csrc/mxu_matvec.cu``) and the gather probe's windowed SpMV
 (``csrc/window_gather.cu``); each has a plain torch twin that CPU tensors
 take.  A (V, D) right-hand side on the 8-row slab form runs the batched
-kernel B1 (``csrc/blockdense_matmat.cu``), which reads the window
-matrices once for up to 64 columns.  The applications (``apps``: Poisson
+kernel B1 (``csrc/blockdense_matmat.cu``), one launch a slab matvec,
+which reads the window matrices once for all columns and skips their
+all-zero positions.  The applications (``apps``: Poisson
 solves, heat geodesics, implicit smoothing, Laplace eigenpairs) run on
 the same stack, and ``parallel`` stacks a collection of meshes into one
 batched cycle.  The JAX

@@ -251,6 +251,20 @@ def add_escape(op: BlockDenseOperator, y: torch.Tensor,
     return y + acc[:r]
 
 
+def slab_escape(op, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y (rows in row order, as many as the slab form ``op``'s output
+    blocks hold) plus its buckets' escape chutes, for x (n_cols,) or
+    (n_cols, D).  The forms ``slab_from_ell`` builds today have none; a
+    bucket's chute rows are in bucket order, placed by inv_block_perm."""
+    if not any(b.esc_w.shape[0] for b in op.buckets):
+        return y
+    tail = tuple(x.shape[1:])
+    parts = [add_escape(b, x.new_zeros((b.m.shape[0] * op.block,) + tail),
+                        x).reshape(-1, op.block, *tail)
+             for b in op.buckets]
+    return y + torch.cat(parts)[op.inv_block_perm].reshape(-1, *tail)
+
+
 def blockdense_matvec(op: BlockDenseOperator, x: torch.Tensor
                       ) -> torch.Tensor:
     """y = A x, plain torch: x (n_cols,), or (n_cols, D) for D

@@ -24,8 +24,14 @@ B1 replaces the same TPU kernel as the JAX package runs it under
 
     Y[b*8 + r, j] = sum_l m[b, r, l] * Xp[window column of l, j]
 
-in f32 with X never rounded, m read once for every 64 columns.
-:func:`blockdense_matmat_fast` dispatches as the 1-D one does.
+in f32 with X never rounded, m read once for all columns, and only the
+positions where a block's 8 rows hold a nonzero multiplied.  One launch
+applies all buckets of an 8-row slab form and writes Y in row order
+(:func:`slab_matmat_cuda`, its twin :func:`slab_matmat_plain`, the
+dispatch :func:`slab_matmat_fast`); :func:`blockdense_matmat_cuda` runs
+the same kernel over one bucket.  Skipping a zero position is exact for
+finite X: where X holds an Inf or a NaN at a position whose 8 entries of
+m are all zero, the twin gives NaN (0 * Inf) and the kernel does not.
 
 The shared libraries are built with ``nvcc`` at first use from the
 sources in the package into ``gravomg_tpu_torch/_build/`` and bound with
@@ -35,11 +41,14 @@ ctypes (plain C interface, no PyTorch headers).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
-                                              add_escape, padded_length)
+                                              add_escape, pad_x,
+                                              padded_length, slab_escape)
 from gravomg_tpu_torch.utils.build import CudaLibrary
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -48,11 +57,13 @@ LIBRARY = CudaLibrary("blockdense_matvec.cu",
                       {"gmg_blockdense_matvec_f32": _ARGS,
                        "gmg_blockdense_matvec_bf16": _ARGS})
 _MM_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
 MATMAT_LIBRARY = CudaLibrary("blockdense_matmat.cu",
                              {"gmg_blockdense_matmat_f32": _MM_ARGS,
                               "gmg_blockdense_matmat_bf16": _MM_ARGS})
+MAX_BUCKETS = 12            # buckets one launch of B1 takes
 # Window entries (blocks x NWW x D) the twin gathers at a time.
 _TWIN_CHUNK = 1 << 28
 
@@ -175,71 +186,163 @@ def _finish_matmat(op: BlockDenseOperator, y: torch.Tensor,
 
 def blockdense_matmat_plain(op: BlockDenseOperator, x: torch.Tensor,
                             xp: torch.Tensor) -> torch.Tensor:
-    """Plain torch twin of B1, plus escape chute and diagonal.  ``x`` is
-    (n_cols, D), ``xp`` x as :func:`pad_x` pads it."""
+    """Plain torch twin of B1 on one bucket, plus escape chute and
+    diagonal.  ``x`` is (n_cols, D), ``xp`` x as :func:`pad_x` pads it."""
     _check_aligned_op(op)
     y = _windows_matmat_plain(op, xp).reshape(-1, xp.shape[1])
     return _finish_matmat(op, y, x)
 
 
-def blockdense_matmat_cuda(op: BlockDenseOperator, x: torch.Tensor,
-                           xp: torch.Tensor) -> torch.Tensor:
-    """B1 on the card, plus escape chute and diagonal: (n_rows, D).
-
-    ``x`` is (n_cols, D) float32, ``xp`` x as :func:`pad_x` pads it
-    ((padded rows, D), contiguous; the buckets of one slab operator share
-    it).  Raises on anything the kernel does not take; launches on the
-    current stream and counts each launch in
-    ``blockdense_matmat_cuda.launches``.
-    """
-    _check_aligned_op(op)
-    m, ws = op.m, op.win_start
-    nblk, blk, nww = m.shape
-    if not (x.is_cuda and m.is_cuda and ws.is_cuda and xp.is_cuda):
-        raise ValueError("blockdense_matmat_cuda needs CUDA tensors")
+def _matmat_launch(buckets: Sequence[BlockDenseOperator],
+                   inv: Optional[torch.Tensor], n_out: int,
+                   x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """(n_out*8, D) f32 from one launch of B1 over ``buckets``: output
+    block o from block ``inv[o]`` of the buckets laid end to end, or from
+    block o of the one bucket where ``inv`` is None.  The kernel reads
+    x's rows from ``xs`` (x itself, or x as :func:`pad_x` pads it) and
+    takes rows from n_cols on as zero.  Raises on anything it does not
+    take; launches on the current stream and counts the launch in
+    ``blockdense_matmat_cuda.launches``."""
+    dev = x.device
+    if not x.is_cuda:
+        raise ValueError("B1 needs CUDA tensors")
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] < 1:
         raise ValueError(f"x must be 2-D float32 (n_cols, D), got "
                          f"{x.dtype} {tuple(x.shape)}")
     d = x.shape[1]
-    if m.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"m must be float32 or bfloat16, got {m.dtype}")
-    if ws.dtype != torch.int32 or tuple(ws.shape) != (nblk, nww // 128):
-        raise ValueError("win_start must be int32 (NBLK, NW)")
-    if nww % 128 or blk != 8 or x.shape[0] != op.n_cols:
-        raise ValueError(f"B1 takes 8-row blocks: m={tuple(m.shape)} "
-                         f"x={tuple(x.shape)} n_cols={op.n_cols}")
-    if not (m.is_contiguous() and ws.is_contiguous()):
-        raise ValueError("m and win_start must be contiguous")
-    if m.data_ptr() % 16 or m.device != x.device or ws.device != x.device:
-        raise ValueError("m must be 16-byte aligned, on x's device")
-    if not (xp.dtype == torch.float32 and xp.ndim == 2
-            and xp.shape[1] == d and xp.is_contiguous()
+    dtype = buckets[0].m.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"m must be float32 or bfloat16, got {dtype}")
+    if not 0 < len(buckets) <= MAX_BUCKETS:
+        raise ValueError(f"B1 takes 1 to {MAX_BUCKETS} buckets, got "
+                         f"{len(buckets)}")
+    for b in buckets:
+        _check_aligned_op(b)
+        m, ws = b.m, b.win_start
+        if m.ndim != 3:
+            raise ValueError(f"B1 takes 8-row blocks: m={tuple(m.shape)}")
+        nblk, blk, nww = m.shape
+        if m.dtype != dtype:
+            raise ValueError("the buckets' m must share one dtype")
+        if ws.dtype != torch.int32 or tuple(ws.shape) != (nblk, nww // 128):
+            raise ValueError("win_start must be int32 (NBLK, NW)")
+        if nww % 128 or blk != 8 or x.shape[0] != b.n_cols:
+            raise ValueError(f"B1 takes 8-row blocks: m={tuple(m.shape)} "
+                             f"x={tuple(x.shape)} n_cols={b.n_cols}")
+        if not (m.is_contiguous() and ws.is_contiguous()):
+            raise ValueError("m and win_start must be contiguous")
+        if m.data_ptr() % 16 or m.device != dev or ws.device != dev:
+            raise ValueError("m must be 16-byte aligned, on x's device")
+    if inv is not None and not (inv.dtype == torch.int32 and inv.ndim == 1
+                                and inv.shape[0] == n_out
+                                and inv.is_contiguous() and inv.device == dev):
+        raise ValueError("inv_block_perm must be int32 (n_out,), "
+                         "contiguous, on x's device")
+    if not (xs.dtype == torch.float32 and xs.ndim == 2
+            and xs.shape[1] == d and xs.shape[0] >= x.shape[0]
+            and xs.is_contiguous() and xs.data_ptr() % 16 == 0
+            and xs.device == dev):
+        raise ValueError("x's rows must be (rows, D) float32, contiguous, "
+                         "16-byte aligned, on x's device")
+    lib = MATMAT_LIBRARY.load()
+    fn = (lib.gmg_blockdense_matmat_f32 if dtype == torch.float32
+          else lib.gmg_blockdense_matmat_bf16)
+    nb = len(buckets)
+    starts = np.cumsum([0] + [b.m.shape[0] for b in buckets[:-1]])
+    ms = (ctypes.c_void_p * nb)(*(b.m.data_ptr() for b in buckets))
+    wss = (ctypes.c_void_p * nb)(*(b.win_start.data_ptr() for b in buckets))
+    caps = (ctypes.c_int * nb)(*(b.m.shape[2] // 128 for b in buckets))
+    firsts = (ctypes.c_int * nb)(*(int(v) for v in starts))
+    y = torch.empty((n_out * 8, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ms, wss, caps, firsts, nb,
+                 None if inv is None else inv.data_ptr(), n_out,
+                 xs.data_ptr(), x.shape[0], y.data_ptr(), d, stream)
+    if err != 0:
+        raise RuntimeError(f"blockdense_matmat kernel launch failed: "
+                           f"cudaError {err}")
+    blockdense_matmat_cuda.launches += 1
+    return y
+
+
+def blockdense_matmat_cuda(op: BlockDenseOperator, x: torch.Tensor,
+                           xp: torch.Tensor) -> torch.Tensor:
+    """B1 on the card over one bucket, plus escape chute and diagonal:
+    (n_rows, D).
+
+    ``x`` is (n_cols, D) float32, ``xp`` x as :func:`pad_x` pads it
+    ((padded rows, D), contiguous).  Raises on anything the kernel does
+    not take; ``blockdense_matmat_cuda.launches`` counts every launch of
+    B1, through this wrapper or through :func:`slab_matmat_cuda`.
+    """
+    if x.ndim == 2 and not (
+            xp.dtype == torch.float32 and xp.ndim == 2
+            and xp.shape[1] == x.shape[1] and xp.is_contiguous()
             and xp.data_ptr() % 16 == 0 and xp.device == x.device
             and xp.shape[0] >= padded_length(op, op.n_cols)):
         raise ValueError("xp must be x zero-padded by pad_x ((rows, D) "
                          "float32, contiguous, 16-byte aligned, on x's "
                          "device)")
-    lib = MATMAT_LIBRARY.load()
-    fn = (lib.gmg_blockdense_matmat_f32 if m.dtype == torch.float32
-          else lib.gmg_blockdense_matmat_bf16)
-    y = torch.empty((nblk * blk, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(m.data_ptr(), ws.data_ptr(), xp.data_ptr(), y.data_ptr(),
-                 nblk, blk, nww // 128, d, stream)
-    if err != 0:
-        raise RuntimeError(f"blockdense_matmat kernel launch failed: "
-                           f"cudaError {err}")
-    blockdense_matmat_cuda.launches += 1
+    y = _matmat_launch((op,), None, op.m.shape[0], x, xp)
     return _finish_matmat(op, y, x)
 
 
 blockdense_matmat_cuda.launches = 0
 
 
-def blockdense_matmat_fast(op: BlockDenseOperator, x: torch.Tensor,
-                           xp: torch.Tensor) -> torch.Tensor:
-    """B1 for a CUDA x, its plain twin for a CPU x."""
+def _check_slab(op) -> None:
+    if op.mxu or op.block != 8:
+        raise ValueError("B1 takes the 8-row slab form, not the "
+                         "transposed-tile (mxu) one")
+
+
+def slab_matmat_plain(op, x: torch.Tensor) -> torch.Tensor:
+    """Plain torch twin of one launch of B1 over all buckets of an 8-row
+    ``SlabOperator``: each output block, in row order, takes its block's
+    products from its bucket (padding blocks are not computed); plus the
+    escape chutes.  (n_rows, D) without the diagonal."""
+    _check_slab(op)
+    xp = pad_x(op.buckets[0], x)
+    inv = op.inv_block_perm.long()
+    d = x.shape[1]
+    acc = torch.promote_types(op.buckets[0].m.dtype, torch.float32)
+    y = torch.empty((inv.shape[0], 8, d), dtype=acc, device=x.device)
+    first = 0
+    for b in op.buckets:
+        _check_aligned_op(b)
+        nblk = b.m.shape[0]
+        out = torch.nonzero((inv >= first) & (inv < first + nblk))[:, 0]
+        blocks = inv[out] - first
+        y[out] = _windows_matmat_plain(
+            b._replace(m=b.m[blocks], win_start=b.win_start[blocks]), xp)
+        first += nblk
+    y = slab_escape(op, y.reshape(-1, d).to(x.dtype), x)
+    return y[:op.n_rows]
+
+
+def slab_matmat_cuda(op, x: torch.Tensor) -> torch.Tensor:
+    """One launch of B1 over all buckets of an 8-row ``SlabOperator``,
+    writing Y in row order, plus the escape chutes: (n_rows, D) without
+    the diagonal.  The kernel reads x unpadded (a copy only where x is
+    not contiguous and 16-byte aligned).  Raises on anything the kernel
+    does not take.
+
+    The kernel multiplies only the window positions where one of a
+    block's 8 rows of m is nonzero.  For finite x that is the twin's sum
+    exactly; an Inf or a NaN of x at a skipped position, which the twin
+    turns into NaN, leaves the kernel's rows finite."""
+    _check_slab(op)
+    xs = x.contiguous()
+    if xs.data_ptr() % 16:
+        xs = xs.clone()
+    inv = op.inv_block_perm
+    y = _matmat_launch(op.buckets, inv, inv.shape[0], x, xs)
+    return slab_escape(op, y, x)[:op.n_rows]
+
+
+def slab_matmat_fast(op, x: torch.Tensor) -> torch.Tensor:
+    """B1 in one launch for a CUDA x, its plain twin for a CPU x."""
     if x.is_cuda:
-        return blockdense_matmat_cuda(op, x, xp)
-    return blockdense_matmat_plain(op, x, xp)
+        return slab_matmat_cuda(op, x)
+    return slab_matmat_plain(op, x)

@@ -40,7 +40,7 @@ import torch
 
 from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               add_escape, pad_x,
-                                              padded_length)
+                                              padded_length, slab_escape)
 from gravomg_tpu_torch.utils.build import CudaLibrary
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -325,16 +325,6 @@ def mxu_matvec_cuda(op: BlockDenseOperator, x: torch.Tensor,
 mxu_matvec_cuda.launches = 0
 
 
-def _slab_escape(op, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y plus the buckets' escape chutes (empty on the forms
-    ``slab_from_ell`` builds today; their rows are in bucket order)."""
-    if not any(b.esc_w.shape[0] for b in op.buckets):
-        return y
-    parts = [add_escape(b, x.new_zeros((b.m.shape[0] * 128,)), x)
-             .reshape(-1, 128) for b in op.buckets]
-    return y + torch.cat(parts)[op.inv_block_perm].reshape(-1)
-
-
 def _plan_of(op) -> MxuPlan:
     if op.plan is None:
         raise ValueError("the slab form carries no work table (plan): "
@@ -347,7 +337,7 @@ def mxu_slab_matvec_plain(op, x: torch.Tensor) -> torch.Tensor:
     ``SlabOperator``: (n_rows,) without the diagonal."""
     xp = pad_x(op.buckets[0], x)
     y = _tiles_plain(op.buckets, _plan_of(op), xp).to(x.dtype)
-    return _slab_escape(op, y, x)[:op.n_rows]
+    return slab_escape(op, y, x)[:op.n_rows]
 
 
 def mxu_slab_matvec_cuda(op, x: torch.Tensor) -> torch.Tensor:
@@ -355,7 +345,7 @@ def mxu_slab_matvec_cuda(op, x: torch.Tensor) -> torch.Tensor:
     ``SlabOperator``: (n_rows,) in row order, without the diagonal."""
     xp = pad_x(op.buckets[0], x)
     y = _tiles_cuda(op.buckets, _plan_of(op), x, xp)
-    return _slab_escape(op, y, x)[:op.n_rows]
+    return slab_escape(op, y, x)[:op.n_rows]
 
 
 def mxu_slab_matvec_fast(op, x: torch.Tensor) -> torch.Tensor:

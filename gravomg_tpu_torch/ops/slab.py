@@ -5,10 +5,10 @@ needs.
 Row blocks are partitioned into buckets by their greedy first-fit
 window count, permuted so each bucket is contiguous, and each bucket is
 one aligned BlockDenseOperator whose window count is the bucket cap.
-The matvec runs the block-window kernel once per bucket (the batched
-kernel B1 for a (n_cols, D) x) and un-permutes the output at block
-granularity; a transposed-tile form takes one launch for all its
-buckets, which writes y in row order.  Each bucket's block count is
+The matvec runs the block-window kernel once per bucket and un-permutes
+the output at block granularity; for a (n_cols, D) x the batched kernel
+B1, and a transposed-tile form, take one launch for all buckets, which
+writes y in row order.  Each bucket's block count is
 padded to a multiple of 8 (32 above 32 blocks) as in the JAX package, so
 the converted arrays, ``inv_block_perm`` included, equal the JAX
 package's.
@@ -30,8 +30,8 @@ import torch
 from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               blockdense_from_ell, pad_x,
                                               trim_escape)
-from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matmat_fast,
-                                                   blockdense_matvec_fast)
+from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matvec_fast,
+                                                   slab_matmat_fast)
 from gravomg_tpu_torch.ops.mxu_cuda import (MxuPlan, mxu_plan,
                                             mxu_slab_matvec_fast)
 
@@ -189,25 +189,26 @@ def slab_matvec(op: SlabOperator, x: torch.Tensor) -> torch.Tensor:
     """y = A x for x (n_cols,) or, on the 8-row form, (n_cols, D).
 
     An ``mxu`` form takes one launch of the transposed-tile kernel over
-    all its buckets, which writes y in row order; an 8-row form the
-    block-window kernel per bucket (for a 2-D x the batched kernel B1,
-    which reads m once for up to 64 columns) and a block-level
-    un-permutation; on the CPU their plain twins.  x is zero-padded once
-    for all buckets (they share n_cols and the window width).  An
-    ``mxu`` form refuses a 2-D x: the cycle sends it the ELL gather."""
+    all its buckets, which writes y in row order; an 8-row form with a
+    2-D x one launch of the batched kernel B1 over all its buckets, also
+    in row order; an 8-row form with a 1-D x the block-window kernel per
+    bucket and a block-level un-permutation, x zero-padded once for all
+    buckets (they share n_cols and the window width); on the CPU their
+    plain twins.  An ``mxu`` form refuses a 2-D x: the cycle sends it the
+    ELL gather."""
     if op.mxu:
         if x.ndim != 1:
             raise ValueError("the transposed-tile (mxu) slab form takes a "
                              "1-D x only")
         y = mxu_slab_matvec_fast(op, x)
+    elif x.ndim == 2:
+        y = slab_matmat_fast(op, x)
     else:
         xp = pad_x(op.buckets[0], x)
-        fn = blockdense_matvec_fast if x.ndim == 1 else blockdense_matmat_fast
-        tail = tuple(x.shape[1:])
-        parts = [fn(b, x, xp).reshape(-1, op.block, *tail)
+        parts = [blockdense_matvec_fast(b, x, xp).reshape(-1, op.block)
                  for b in op.buckets]
-        ycat = torch.cat(parts, dim=0)           # (NBLK_padded, BLK[, D])
-        y = ycat[op.inv_block_perm].reshape(-1, *tail)[:op.n_rows]
+        ycat = torch.cat(parts, dim=0)           # (NBLK_padded, BLK)
+        y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
     if op.diag is not None:
         y = y + (op.diag if x.ndim == 1 else op.diag[:, None]) * x
     return y

@@ -93,22 +93,25 @@ def measure_form(sop, x, dt) -> dict:
     """One transposed-tile form with m of dtype ``dt``: twins, kernel,
     kernel, twins per call; the kernels alone; the library's bmm for f32
     (none for bf16 m: ``torch.bmm`` in bf16 rounds its output); the
-    bytes by the work table, the bound and the shares."""
+    bytes by the work table, the bound and the shares.  Every timed call
+    starts with L2 flushed: the coarse levels' working sets fit in L2,
+    and a V-cycle walks the other levels between two products of one."""
     sd = sop._replace(buckets=tuple(b._replace(m=b.m.to(dt).contiguous())
                                     for b in sop.buckets))
     twin = bucket_loop(mxu_matvec_plain, sd.buckets, x)
-    p1 = cuda_ms(twin)
-    k1 = cuda_ms(lambda: mxu_slab_matvec_cuda(sd, x))
-    k2 = cuda_ms(lambda: mxu_slab_matvec_cuda(sd, x))
-    p2 = cuda_ms(twin)
-    lib_ms = (cuda_ms(library_bmm(sd.buckets, x))
+    p1 = cuda_ms(twin, cold=True)
+    k1 = cuda_ms(lambda: mxu_slab_matvec_cuda(sd, x), cold=True)
+    k2 = cuda_ms(lambda: mxu_slab_matvec_cuda(sd, x), cold=True)
+    p2 = cuda_ms(twin, cold=True)
+    lib_ms = (cuda_ms(library_bmm(sd.buckets, x), cold=True)
               if dt == torch.float32 else None)
     bound_ms, bound_by, io_bytes = matvec_bound(sd.buckets, x, sd.plan)
     pb = plan_bytes(sd.buckets, sd.plan)
     k_ms = min(k1, k2)
     # The kernels alone (the persistent one and the combination),
     # without the wrapper's host time and x's padding.
-    evts = kernel_events(lambda: mxu_slab_matvec_cuda(sd, x), "mxu_")
+    evts = kernel_events(lambda: mxu_slab_matvec_cuda(sd, x), "mxu_",
+                         cold=True)
     alone_ms = sum(us for _, us in evts) / 1e3 if evts else None
     return {"rows": sop.n_rows, "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
             "kernel_alone_ms": alone_ms,

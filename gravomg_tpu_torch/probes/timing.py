@@ -5,7 +5,12 @@ A kernel's bound is the least time the card could take for the same
 work: the bytes the function must move (each input read once, each
 output written once) over the H100's published device-memory rate, or
 its operations over the published f32 rate of the CUDA cores (a
-multiply-add counts two), whichever is larger.
+multiply-add counts two), whichever is larger.  A device-memory bound
+holds only for a call that finds its inputs in device memory: a working
+set that fits in the 50 MB L2 and is timed again and again would be read
+from L2.  So ``cold=True`` runs every timed call after writing a buffer
+four times the L2's size, as a caller that walks other data in between
+finds it.
 """
 
 from __future__ import annotations
@@ -18,14 +23,28 @@ from gravomg_tpu_torch.ops.blockdense import pad_x, padded_length
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published device-memory rate
 F32_FLOPS = 67e12              # H100 SXM, published f32 rate, CUDA cores
+L2_BYTES = 50 * 2**20          # H100 SXM, L2 cache
+_flush_buffer = []             # the buffer flush_l2 writes, made at first use
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events)."""
+def flush_l2() -> None:
+    """Write four L2's worth of bytes on the current device, so that
+    nothing read before stays in L2."""
+    if not _flush_buffer:
+        _flush_buffer.append(torch.empty(4 * L2_BYTES, dtype=torch.uint8,
+                                         device="cuda"))
+    _flush_buffer[0].zero_()
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, cold: bool = False) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events);
+    with ``cold``, L2 flushed before each run (outside the events)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -36,15 +55,19 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_events(fn, match: str = ""):
+def kernel_events(fn, match: str = "", cold: bool = False):
     """[(name, microseconds)] of the device kernels of one call of ``fn``
     whose name contains ``match``, in launch order, as torch.profiler saw
     them; [] if it saw none in two tries (now and then a trace comes back
-    without its kernels)."""
+    without its kernels).  With ``cold``, L2 is flushed before the traced
+    call (outside the trace)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
+        if cold:
+            flush_l2()
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -74,13 +97,22 @@ def bound(nbytes: int, flops: int):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def nonzero_pairs(buckets) -> int:
+    """(block, position) pairs of 8-row buckets where any of the block's
+    rows holds a nonzero of m: the positions B1 multiplies."""
+    return sum(int((b.m != 0).any(dim=1).sum()) for b in buckets)
+
+
 def matvec_bound(buckets, x, plan=None):
     """Bound of one slab matvec over ``buckets``: (ms, bound_by, bytes).
 
-    Without ``plan`` (the block-window kernels, one launch per bucket,
-    which read every block of a bucket): m, win_start and the padded x
-    read once, y written once, one multiply-add per entry of m and
-    column of x (x (n_cols,), or (n_cols, D) for B1).  With
+    Without ``plan`` (the block-window kernels): m, win_start and the
+    padded x read once, y written once (every block of every bucket).
+    For x (n_cols,) one multiply-add per entry of m (K1 reads them all,
+    and its bytes bound it).  For x (n_cols, D) (B1, which skips the
+    positions where all 8 rows of a block are zero) 8 * D multiply-adds
+    per (block, position) pair with a nonzero (:func:`nonzero_pairs`),
+    counted on these buckets' own m: the work these inputs need.  With
     the transposed-tile kernel's work table ``plan``: what that table
     makes the kernel read and write (``plan_bytes``: a bucket's padding
     blocks have no item and are not counted), one multiply-add per entry
@@ -97,7 +129,11 @@ def matvec_bound(buckets, x, plan=None):
                   for b in buckets)
               + 4 * d * padded_length(buckets[0], x.shape[0])
               + 4 * d * sum(b.m.shape[0] * b.block for b in buckets))
-    ms, by = bound(nbytes, 2 * d * sum(b.m.numel() for b in buckets))
+    if x.ndim == 1:
+        madds = sum(b.m.numel() for b in buckets)
+    else:
+        madds = 8 * d * nonzero_pairs(buckets)
+    ms, by = bound(nbytes, 2 * madds)
     return ms, by, nbytes
 
 

@@ -8,7 +8,7 @@ the uniform block-dense forms; what has neither uses the ELL gather forms.
 The cycle is a plain Python recursion over the levels.
 
 A 2-D x (V, D) takes a level's fast form too when it is an 8-row slab
-form (through the batched kernel B1, m read once for up to 64 columns) or
+form (through the batched kernel B1, one launch a matvec, m read once) or
 a uniform form; an ``mxu`` form leaves it on the ELL gather.  JAX's own
 (V, D) branch keeps ELL (``gravomg_tpu/solve/vcycle.py:55``), but its
 c5 recipe vmaps the 1-D cycle over the columns, which reaches the slab
