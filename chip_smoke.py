@@ -114,9 +114,31 @@ script exits nonzero:
      against the per-mesh loop; padded and real row counts; peak device
      memory), ``batched_solve``'s shared count and largest residual.
 
-Phases 13-16 are functions of (torch, device, n, ...) that also run on
-the CPU at a small n (tests/test_torch_smoke_phases.py), but for 15 (b),
-which needs phase 3's hierarchy on the card.
+ 17. multi-device at 1M on phase 3's hierarchy (its ELL forms saved by
+     ``save_solver`` for the ranks to load): (a) 4 gloo ranks on the one
+     card (``parallel/launch.py::run_ranks``): each pads and shards the
+     hierarchy and runs ``halo_solve`` and ``sharded_solve`` (MG-PCG,
+     f32) on phase 3's b, one ``vertex_sharded_cg_step`` from x = 0, and
+     ``batched_vcycle`` on 64 right-hand sides (a card generator seeded
+     0, 16 a rank) on the unpadded hierarchy with slab forms (B1's
+     launches counted per rank); the main process holds their rows
+     against the unsharded solves: iterations within 1 of the unsharded
+     ELL MG-PCG, each residual re-measured in f64 with the unsharded
+     operator (at most twice the unsharded solution's: the f32 rounding
+     floor, far above 1e-8, bounds both), the step against the same step
+     unsharded, the 64 columns within 1e-6 of max|X| of the 1-D cycles;
+     seconds of each solve and of the plans, peak device memory per
+     rank.  Gloo moves every exchange through host memory: no number
+     here measures a link between cards.  (b) One NCCL rank runs the
+     same two solves (the unsharded iteration count).  (c) The halo
+     plan at nd = 8 on the greedy hierarchy (the C++ coarsener's, whose
+     levels are those of HALO_1M.json): S and halo_frac of every level's
+     A, U and U^T beside the recorded ones, host seconds.
+
+Phases 13-17 are functions of (torch, device, n, ...) that also run on
+the CPU at a small n (tests/test_torch_smoke_phases.py,
+tests/test_torch_smoke_multidevice.py), but for 15 (b), which needs
+phase 3's hierarchy on the card.
 
 A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
@@ -137,8 +159,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -153,8 +177,12 @@ SMOOTH_MAX_CYCLES = 20
 FIELDS = (("banded", "A"), ("uw", "U"), ("utw", "U^T"))
 C5_N, C5_D = 20_000, 64          # phase 15 (a), the c5 recipe
 C5B_MESHES, C5B_N = 64, 5_000    # phase 16, the c5b recipe
+MD_RANKS = 4                     # phase 17: gloo ranks on the one card
 TOL_COLUMNS = 1e-5               # a batched cycle against its own cycles
 MAX_SHARE = 1.05                 # above it a bound's count is wrong
+# Phase 17: a sharded f32 solve's residual re-measured in f64 with the
+# unsharded operator, at most this times the unsharded solve's.
+TRUE_RES_FACTOR = 2.0
 
 
 def _run(cmd):
@@ -1546,6 +1574,248 @@ def phase_meshes(torch, device, n_meshes, n):
     return out
 
 
+def multidevice_problem(torch, device, n, workdir):
+    """The bench recipe at ``n`` points on ``device`` for phase 17 when
+    no phase 3 ran (the CPU test): the hierarchy built by
+    ``build_hierarchy_device`` saved as ELL forms to ``workdir``, and the
+    greedy hierarchy of ``build_hierarchy_host`` on the CPU.  Returns
+    (config, npz path, greedy hierarchy)."""
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.probes.mxu_levels import bench_hierarchy
+    cfg, h, _, graph, op = bench_hierarchy(n, device)
+    path = os.path.join(workdir, "hierarchy.npz")
+    gt.save_solver(path, h)
+    h_greedy = _to_device(torch, gt.build_hierarchy_host(graph, op, cfg),
+                          "cpu")
+    return cfg, path, h_greedy
+
+
+def _halo_plan_table(torch, h_greedy, nd, n):
+    """Phase 17 (c): ``seg_max`` (S) and ``halo_frac`` of every level's
+    A, U and U^T plan at ``nd`` ranks on the greedy hierarchy padded for
+    the halo path (host seconds), beside HALO_1M.json's at 1M."""
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.parallel.halo import level_plans
+    hp = gt.pad_solver_levels(gt.attach_restrictions(h_greedy), nd,
+                              pad_coarse=True)
+    recorded = None
+    if n == N:
+        with open(os.path.join(ROOT, "HALO_1M.json")) as f:
+            recorded = json.load(f)["levels"]
+    t0 = time.perf_counter()
+    rows = []
+    for li, lvl in enumerate(hp.levels[:-1]):
+        plans = level_plans(lvl, nd, device="cpu")
+        row = {"level": li, "rows": lvl.op.num_vertices}
+        for key, plan in zip(("A", "U", "Ut"), plans):
+            row[key] = {"seg_max": plan.s,
+                        "halo_frac": round(plan.halo_frac, 4)}
+            if recorded is not None and li < len(recorded):
+                rec = recorded[li][key]
+                row[key]["recorded"] = {"seg_max": rec["seg_max"],
+                                        "halo_frac": rec["halo_frac"]}
+        rows.append(row)
+    plan_s = time.perf_counter() - t0
+    same = None
+    if recorded is not None:
+        same = len(rows) == len(recorded) and all(
+            r[k]["seg_max"] == r[k]["recorded"]["seg_max"]
+            and r[k]["halo_frac"] == r[k]["recorded"]["halo_frac"]
+            for r in rows for k in ("A", "U", "Ut"))
+    for r in rows:
+        print(f"[17] (c) halo plan at nd={nd}, level {r['level']} "
+              f"({r['rows']} rows): " + "; ".join(
+                  f"{k} S {r[k]['seg_max']} halo_frac {r[k]['halo_frac']}"
+                  + (f" (HALO_1M.json: {r[k]['recorded']['seg_max']}, "
+                     f"{r[k]['recorded']['halo_frac']})"
+                     if "recorded" in r[k] else "")
+                  for k in ("A", "U", "Ut")))
+    print(f"[17] (c) plans of {len(rows)} levels built on the host in "
+          f"{plan_s:.2f} s; equal to HALO_1M.json (structure counts, no "
+          f"times): {same}")
+    return {"levels": rows, "plan_s": plan_s, "equal_to_record": same}
+
+
+def _true_residual(torch, op, b, x):
+    """||b - A x|| / ||b|| with the unsharded operator, in x's dtype and
+    in f64."""
+    import gravomg_tpu_torch as gt
+    r32 = float(torch.linalg.norm(b - gt.spmv(op, x))
+                / torch.linalg.norm(b))
+    op64 = op._replace(offdiag=op.offdiag.double(), diag=op.diag.double())
+    b64 = b.double()
+    r64 = float(torch.linalg.norm(b64 - gt.spmv(op64, x.double()))
+                / torch.linalg.norm(b64))
+    return r32, r64
+
+
+def phase_multidevice(torch, device, n, world_size, problem=None,
+                      n_rhs=64):
+    """Phase 17, multi-device at ``n`` points: (a) ``world_size`` gloo
+    ranks on ``device`` (on the card: all on the one card) load the ELL
+    hierarchy the main process saved, pad and shard it, and run
+    ``halo_solve`` and ``sharded_solve`` (MG-PCG) on phase 3's b, one
+    ``vertex_sharded_cg_step`` and ``batched_vcycle`` on ``n_rhs``
+    right-hand sides (a generator seeded 0 on the device, n_rhs /
+    world_size a rank) on the unpadded hierarchy with slab forms, B1's
+    launches counted in each rank; the main process holds their rows
+    against the unsharded solves on the same ELL hierarchy: each
+    solution's residual re-measured with the unsharded operator,
+    iterations within 1 of the unsharded ELL MG-PCG, the step's r
+    against b - A x, the batched columns against 1-D cycles of the same
+    columns within 1e-6 of max|X|.  (b) On the card, one NCCL rank runs
+    the same two solves: the unsharded iteration count.  (c) The halo
+    plan at nd = 8 on the greedy hierarchy, beside HALO_1M.json at 1M.
+    ``problem`` is (config, npz path of the ELL hierarchy, greedy
+    hierarchy on the CPU) from phase 3, else built here."""
+    import tempfile
+    import numpy as np
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.parallel import run_ranks
+    from gravomg_tpu_torch.probes.multidevice import solve_rank
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as workdir:
+        if problem is None:
+            problem = multidevice_problem(torch, device, n, workdir)
+        cfg, path, h_greedy = problem
+        b_np = np.random.default_rng(0).normal(size=n).astype(np.float32)
+        h = gt.load_solver(path, device=dev)
+        b = torch.as_tensor(b_np, device=dev)
+        op0 = h.levels[0].op
+        x_ref, rel_ref, it_ref = gt.mg_pcg(h, b, cfg)
+        out = {"n": n, "world_size": world_size,
+               "unsharded": {"iters": it_ref, "rel": rel_ref,
+                             "true_rel": _true_residual(torch, op0, b,
+                                                        x_ref)}}
+        ref_true = out["unsharded"]["true_rel"][1]
+        print(f"[17] multi-device at n={n}: unsharded ELL MG-PCG {it_ref} "
+              f"iterations, rel {rel_ref:.3e} (re-measured f32/f64 "
+              f"{out['unsharded']['true_rel'][0]:.3e}/"
+              f"{out['unsharded']['true_rel'][1]:.3e})")
+
+        t0 = time.perf_counter()
+        res = run_ranks(solve_rank, world_size, "gloo", dev,
+                        (path, b_np, cfg, n_rhs), timeout_s=900)
+        out["gloo_wall_s"] = time.perf_counter() - t0
+        tag = (f"{world_size} gloo ranks on {dev.type}"
+               + (" (all on the one card; gloo moves every exchange "
+                  "through host memory, so no time here measures a link "
+                  "between cards)" if on_card else ""))
+        for name in ("halo", "sharded"):
+            x = torch.cat([r[name]["x"] for r in res]).to(dev)
+            iters = {r[name]["iters"] for r in res}
+            rels = {r[name]["rel"] for r in res}
+            true = _true_residual(torch, op0, b, x)
+            secs = [r[name]["s"] for r in res]
+            out[name] = {"iters": sorted(iters), "rel": sorted(rels),
+                         "true_rel": true, "s": secs,
+                         "x_rel_to_unsharded": float(
+                             (x - x_ref).norm() / x_ref.norm())}
+            if name == "halo":
+                out[name]["plan_s"] = [r[name]["plan_s"] for r in res]
+                out[name]["halo_frac"] = res[0][name]["halo_frac"]
+            print(f"[17] (a) {name}_solve on {tag}: iterations {sorted(iters)}"
+                  f", rel {max(rels):.3e} (re-measured with the unsharded "
+                  f"operator f32/f64 {true[0]:.3e}/{true[1]:.3e}), x vs "
+                  f"unsharded {out[name]['x_rel_to_unsharded']:.3e}; s per "
+                  f"rank {[round(v, 3) for v in secs]}"
+                  + (f"; plan s per rank "
+                     f"{[round(v, 3) for v in out[name]['plan_s']]}, "
+                     f"halo_frac per level {out[name]['halo_frac']}"
+                     if name == "halo" else ""))
+            # An f32 CG stopped at a 1e-8 recurrence residual has a true
+            # residual at its rounding floor far above 1e-8 (ROADMAP §3),
+            # the unsharded solve's too: the sharded one is held to that.
+            if not (len(iters) == 1 and len(rels) == 1
+                    and max(rels) <= 1e-8
+                    and true[1] <= TRUE_RES_FACTOR * ref_true
+                    and abs(iters.pop() - it_ref) <= 1
+                    and bool(torch.isfinite(x).all())
+                    and x.shape == b.shape):
+                raise AssertionError(f"{name}_solve: {out[name]} against "
+                                     f"{out['unsharded']}")
+        # The same step unsharded: x = 0, r = b, p = z = M b.
+        hp = gt.pad_solver_levels(h, world_size)
+        a0 = hp.levels[0].op
+        r0 = torch.zeros((a0.num_vertices,), dtype=b.dtype, device=dev)
+        r0[:n] = b
+        z0 = gt.v_cycle(hp, torch.zeros_like(r0), r0, cfg, x0_zero=True)
+        rz0 = torch.dot(r0, z0)
+        ap = gt.spmv(a0, z0)
+        alpha = rz0 / torch.dot(z0, ap)
+        want = {"x": alpha * z0, "r": r0 - alpha * ap}
+        gaps = {}
+        for key, w in want.items():
+            got = torch.cat([r["step"][key] for r in res]).to(dev)
+            gaps[key] = float((got - w).abs().max() / w.abs().max())
+        rzs = {r["step"]["rz"] for r in res}
+        out["step"] = {"rel_to_unsharded": gaps, "rz": sorted(rzs)}
+        print(f"[17] (a) vertex_sharded_cg_step from x = 0 against the same "
+              f"step unsharded: max|d|/max|v| x {gaps['x']:.3e}, r "
+              f"{gaps['r']:.3e}; r.z {sorted(rzs)} on every rank")
+        if not (len(rzs) == 1 and max(gaps.values()) <= TOL_COLUMNS):
+            raise AssertionError(f"vertex_sharded_cg_step: {out['step']}")
+        del hp, a0, r0, z0, ap, want
+
+        hslab = gt.attach_slab_operators(h)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        bs = torch.randn((n_rhs, n), generator=gen, device=dev)
+        xb = torch.cat([r["batched"]["x"] for r in res]).to(dev)
+        worst = 0.0
+        for j in range(n_rhs):
+            col = gt.v_cycle(hslab, torch.zeros_like(bs[j]), bs[j], cfg)
+            worst = max(worst, float((xb[j] - col).abs().max()))
+        worst /= float(xb.abs().max())
+        launches = [r["batched"]["b1_launches"] for r in res]
+        peaks = [r["peak_bytes"] for r in res]
+        out["batched"] = {"worst_rel_to_max": worst, "b1_launches": launches,
+                          "s": [r["batched"]["s"] for r in res],
+                          "slab_s": [r["batched"]["slab_s"] for r in res]}
+        out["peak_bytes"] = peaks
+        out["load_s"] = [r["load_s"] for r in res]
+        print(f"[17] (a) batched_vcycle, {n_rhs} right-hand sides, "
+              f"{n_rhs // world_size} a rank, slab forms: columns vs 1-D "
+              f"cycles max|d|/max|X| {worst:.3e}; B1 launches per rank "
+              f"{launches}; s per rank "
+              f"{[round(v, 3) for v in out['batched']['s']]}; peak device "
+              f"memory per rank {peaks} bytes; load s per rank "
+              f"{[round(v, 3) for v in out['load_s']]}; all ranks "
+              f"{out['gloo_wall_s']:.1f} s wall, spawn included")
+        if not (bool(torch.isfinite(xb).all()) and xb.shape == bs.shape
+                and worst <= 1e-6):
+            raise AssertionError(f"batched_vcycle: {out['batched']}")
+        if on_card and min(launches) <= 0:
+            raise AssertionError("batched_vcycle never launched B1")
+        del hslab, bs, xb
+
+        if on_card:
+            t0 = time.perf_counter()
+            nccl = run_ranks(solve_rank, 1, "nccl", dev,
+                             (path, b_np, cfg, 0), timeout_s=600)[0]
+            out["nccl"] = {name: {"iters": nccl[name]["iters"],
+                                  "rel": nccl[name]["rel"],
+                                  "s": nccl[name]["s"]}
+                           for name in ("halo", "sharded")}
+            out["nccl"]["wall_s"] = time.perf_counter() - t0
+            print(f"[17] (b) one NCCL rank on the card: halo_solve "
+                  f"{nccl['halo']['iters']} iterations, rel "
+                  f"{nccl['halo']['rel']:.3e}, {nccl['halo']['s']:.3f} s; "
+                  f"sharded_solve {nccl['sharded']['iters']} iterations, "
+                  f"rel {nccl['sharded']['rel']:.3e}, "
+                  f"{nccl['sharded']['s']:.3f} s (unsharded: {it_ref})")
+            if not all(nccl[k]["iters"] == it_ref
+                       and nccl[k]["rel"] <= 1e-8
+                       for k in ("halo", "sharded")):
+                raise AssertionError(f"NCCL rank: {out['nccl']}")
+        del h, b, x_ref
+    out["plan"] = _halo_plan_table(torch, h_greedy, 8, n)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[17] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def _share_rows(obj, path=""):
     """(path, row) for every timed row of the report: a dict with a
     share of its bound and the bytes that bound counts."""
@@ -1590,7 +1860,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        import gravomg_tpu_torch  # noqa: F401
+        import gravomg_tpu_torch as gt
     except ImportError as e:
         print(f"chip_smoke: the gravomg_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
@@ -1603,14 +1873,22 @@ def main() -> int:
     report["kernel_check"] = phase_kernel_check(torch, h)
     report["fixture"] = phase_fixture(torch)
     report["main"] = phase_main(torch, cfg, h, h_greedy)
-    del h_greedy
+    # Phase 17 plans the halo exchange of the greedy hierarchy on the host.
+    h_greedy = _to_device(torch, h_greedy, "cpu")
     report["timing"] = phase_timing(torch, h)
     report["profile"] = phase_profile(torch, cfg, h,
                                       report["main"]["vcycle_ms"])
     report["windows_1m"] = phase_window_finding(h)
     report["apps"] = phase_apps(torch, "cuda", N, (cfg, h, graph))
     report["rhs_1m"] = phase_rhs_1m(torch, cfg, h)
-    del h, graph
+    # Phase 17's ranks load phase 3's hierarchy (its ELL forms) from here.
+    md_dir = tempfile.mkdtemp(prefix="chip_smoke_md_")
+    md_problem = (cfg, os.path.join(md_dir, "hierarchy.npz"), h_greedy)
+    t0 = time.perf_counter()
+    gt.save_solver(md_problem[1], h)
+    print(f"[17] phase 3's hierarchy saved for the ranks in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del h, graph, h_greedy
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1638,6 +1916,13 @@ def main() -> int:
     report["rhs_c5"] = phase_rhs_batch(torch, "cuda", C5_N, C5_D)
     torch.cuda.empty_cache()
     report["meshes"] = phase_meshes(torch, "cuda", C5B_MESHES, C5B_N)
+    torch.cuda.empty_cache()
+    try:
+        report["multidevice"] = phase_multidevice(torch, "cuda", N, MD_RANKS,
+                                                  md_problem)
+    finally:
+        shutil.rmtree(md_dir, ignore_errors=True)
+    del md_problem
     torch.cuda.empty_cache()
     # The CPU copy's solves come last: after half a minute of them
     # torch.profiler reports no device kernel any more in this process,

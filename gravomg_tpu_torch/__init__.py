@@ -10,8 +10,10 @@ kernel B1 (``csrc/blockdense_matmat.cu``), one launch a slab matvec,
 which reads the window matrices once for all columns and skips their
 all-zero positions.  The applications (``apps``: Poisson
 solves, heat geodesics, implicit smoothing, Laplace eigenpairs) run on
-the same stack, and ``parallel`` stacks a collection of meshes into one
-batched cycle.  The JAX
+the same stack; ``parallel`` stacks a collection of meshes into one
+batched cycle and shards a hierarchy's rows over the ranks of a
+``torch.distributed`` group (an all-gather or a halo exchange a
+matvec).  The JAX
 package ``gravomg_tpu`` is the reference the port is tested against;
 this package never imports it.
 """
@@ -69,10 +71,12 @@ from gravomg_tpu_torch.hierarchy import (DegenerateHierarchyError, Hierarchy,
                                          build_hierarchy_device,
                                          build_hierarchy_host, coarsen_once)
 from gravomg_tpu_torch.parallel import (attach_collection, batched_solve,
-                                        batched_v_cycle, pad_axis,
+                                        batched_v_cycle, make_mesh, pad_axis,
                                         pad_solver_fine_level,
                                         pad_solver_levels, pad_solver_to,
-                                        stack_solvers, stackable)
+                                        run_ranks, shard_solver,
+                                        sharded_solve, stack_solvers,
+                                        stackable)
 from gravomg_tpu_torch.apps import (heat_geodesics, implicit_smooth,
                                     laplace_eigs, poisson_hierarchy,
                                     refit_hierarchy,
@@ -95,12 +99,14 @@ __all__ = [
     "heat_geodesics", "Hierarchy", "hierarchy_to_numpy", "HierarchyStats",
     "implicit_smooth", "INVALID_INDEX", "INVDIST", "knn_graph", "knn_indices",
     "laplace_eigs", "level_matvec", "level_to_numpy", "LevelData",
-    "load_solver", "mg_fcg", "mg_pcg", "mg_solve", "MultigridConfig",
+    "load_solver", "make_mesh", "mg_fcg", "mg_pcg", "mg_solve",
+    "MultigridConfig",
     "pad_axis", "pad_solver_fine_level", "pad_solver_levels",
     "pad_solver_to", "pcg",
     "poisson_hierarchy", "projected_points", "prolong", "Prolongation",
     "refit_hierarchy", "residual", "restrict", "restrict_gather",
-    "Restriction", "sampling_radius", "save_solver", "scale_mesh",
+    "Restriction", "run_ranks", "sampling_radius", "save_solver",
+    "scale_mesh", "shard_solver", "sharded_solve",
     "screened_poisson_operator", "solve", "solve_poisson", "solve_refined",
     "solve_with_history", "solver_from_numpy", "SolverHierarchy",
     "stack_solvers", "stackable",

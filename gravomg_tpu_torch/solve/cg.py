@@ -24,53 +24,68 @@ from gravomg_tpu_torch.types import EllOperator
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
 
+Dot = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def _krylov(op: EllOperator, b: torch.Tensor, precond: Matvec, tol: float,
             max_iters: int, x0: Optional[torch.Tensor],
-            mv: Optional[Matvec], flexible: bool):
+            mv: Optional[Matvec], flexible: bool, dot: Optional[Dot] = None):
     if mv is None:
         mv = lambda y: spmv(op, y)  # noqa: E731
+    if dot is None:
+        dot, norm = torch.dot, torch.linalg.norm
+    else:
+        norm = lambda y: torch.sqrt(dot(y, y))  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
     tiny = torch.finfo(b.dtype).tiny
-    bnorm = max(float(torch.linalg.norm(b)), 1e-30)
+    bnorm = max(float(norm(b)), 1e-30)
     r = b - mv(x)
     z = precond(r)
     p = z
-    rz = torch.dot(r, z)
-    rel = float(torch.linalg.norm(r)) / bnorm
+    rz = dot(r, z)
+    rel = float(norm(r)) / bnorm
     it = 0
     while rel > tol and it < max_iters:
         ap = mv(p)
-        alpha = rz / torch.clamp(torch.dot(p, ap), min=tiny)
+        alpha = rz / torch.clamp(dot(p, ap), min=tiny)
         x = x + alpha * p
         r_new = r - alpha * ap
         z = precond(r_new)
-        rz_new = torch.dot(r_new, z)
+        rz_new = dot(r_new, z)
         if flexible:
             # Polak-Ribiere: keeps p A-orthogonal when M varies.
-            beta = (rz_new - torch.dot(r, z)) / torch.clamp(rz, min=tiny)
+            beta = (rz_new - dot(r, z)) / torch.clamp(rz, min=tiny)
         else:
             beta = rz_new / torch.clamp(rz, min=tiny)
         p = z + beta * p
         r, rz = r_new, rz_new
-        rel = float(torch.linalg.norm(r)) / bnorm
+        rel = float(norm(r)) / bnorm
         it += 1
     return x, rel, it
 
 
 def pcg(op: EllOperator, b: torch.Tensor, precond: Matvec,
         tol: float = 1e-8, max_iters: int = 500,
-        x0: Optional[torch.Tensor] = None, mv: Optional[Matvec] = None):
-    """Preconditioned CG.  ``mv`` overrides the operator matvec."""
-    return _krylov(op, b, precond, tol, max_iters, x0, mv, flexible=False)
+        x0: Optional[torch.Tensor] = None, mv: Optional[Matvec] = None,
+        dot: Optional[Dot] = None):
+    """Preconditioned CG.  ``mv`` overrides the operator matvec; ``dot``
+    the inner product (default ``torch.dot``; the norms become
+    sqrt(dot(r, r)) with it), e.g. an all-reduced dot of row-sharded
+    vectors."""
+    return _krylov(op, b, precond, tol, max_iters, x0, mv, flexible=False,
+                   dot=dot)
 
 
 def fcg(op: EllOperator, b: torch.Tensor, precond: Matvec,
         tol: float = 1e-8, max_iters: int = 500,
-        x0: Optional[torch.Tensor] = None, mv: Optional[Matvec] = None):
+        x0: Optional[torch.Tensor] = None, mv: Optional[Matvec] = None,
+        dot: Optional[Dot] = None):
     """Flexible CG (Notay's FCG): the Polak-Ribiere direction update
     beta = z_{k+1}.(r_{k+1} - r_k) / (z_k.r_k) stays convergent when the
-    preconditioner varies between iterations, e.g. a bf16 V-cycle."""
-    return _krylov(op, b, precond, tol, max_iters, x0, mv, flexible=True)
+    preconditioner varies between iterations, e.g. a bf16 V-cycle.
+    ``mv`` and ``dot`` as in :func:`pcg`."""
+    return _krylov(op, b, precond, tol, max_iters, x0, mv, flexible=True,
+                   dot=dot)
 
 
 def _mg(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,

@@ -85,16 +85,25 @@ def level_matvec(level: SolverLevel, x: torch.Tensor) -> torch.Tensor:
     return spmv(level.op, x)
 
 
+def smooth_with(op, cheb: Optional[ChebyshevParams], mv, x, b, iters: int,
+                cfg: MultigridConfig, x0_zero: bool = False):
+    """The configured smoother (Chebyshev of ``cfg.chebyshev_degree``
+    or ``iters`` weighted-Jacobi sweeps) with its matvec through ``mv``
+    (None: ELL on ``op``), which otherwise lends only its diagonal."""
+    if cfg.smoother == "chebyshev":
+        return chebyshev(op, x, b, cheb, cfg.chebyshev_degree, mv=mv,
+                         x0_zero=x0_zero)
+    return weighted_jacobi(op, x, b, iters, cfg.jacobi_omega, mv=mv,
+                           x0_zero=x0_zero)
+
+
 def _smooth(level: SolverLevel, x, b, iters: int, cfg: MultigridConfig,
             x0_zero: bool = False):
     mv = None
     if takes(level.banded, x):
         mv = functools.partial(level_matvec, level)
-    if cfg.smoother == "chebyshev":
-        return chebyshev(level.op, x, b, level.cheb, cfg.chebyshev_degree,
-                         mv=mv, x0_zero=x0_zero)
-    return weighted_jacobi(level.op, x, b, iters, cfg.jacobi_omega, mv=mv,
-                           x0_zero=x0_zero)
+    return smooth_with(level.op, level.cheb, mv, x, b, iters, cfg,
+                       x0_zero=x0_zero)
 
 
 def _restrict_level(level: SolverLevel, r: torch.Tensor) -> torch.Tensor:

@@ -61,6 +61,16 @@ class Graph(NamedTuple):
     def mask(self) -> torch.Tensor:
         return self.neighbors != INVALID_INDEX
 
+    @property
+    def degrees(self) -> torch.Tensor:
+        """(V,) valid neighbour slots per vertex."""
+        return torch.sum(self.mask, dim=1)
+
+    @property
+    def num_edges(self) -> torch.Tensor:
+        """Directed edge count (each undirected edge counted twice)."""
+        return torch.sum(self.degrees)
+
     def safe_neighbors(self) -> torch.Tensor:
         return safe_gather_index(self.neighbors)
 
@@ -82,6 +92,16 @@ class Prolongation(NamedTuple):
     def n_fine(self) -> int:
         return self.cols.shape[-2]
 
+    def as_dense(self) -> torch.Tensor:
+        """Dense (n_fine, n_coarse) matrix; for tests and small levels."""
+        u = torch.zeros((self.n_fine, self.n_coarse),
+                        dtype=self.weights.dtype, device=self.weights.device)
+        rows = torch.arange(self.n_fine, device=self.cols.device)[:, None]
+        u.index_put_((rows.expand_as(self.cols).reshape(-1),
+                      self.cols.reshape(-1).long()),
+                     self.weights.reshape(-1), accumulate=True)
+        return u
+
 
 class Restriction(NamedTuple):
     """Gather-form U^T: per coarse vertex, its (fine row, weight) pairs.
@@ -98,6 +118,11 @@ class Restriction(NamedTuple):
     @property
     def n_coarse(self) -> int:
         return self.rows.shape[-2]
+
+    @property
+    def max_children(self) -> int:
+        """Width of the children table."""
+        return self.rows.shape[-1]
 
     @property
     def mask(self) -> torch.Tensor:
