@@ -19,21 +19,27 @@ script exits nonzero:
      counts, sampling rounds and seconds per stage, the build's peak
      device memory, and the same build by ``build_hierarchy`` (the
      reference's sampling, on the card) and by ``build_hierarchy_host``
-     (the C++ coarsener) for their seconds; the slab forms; then the
-     kernel against its plain twin on every bucket of every slab form
-     (A, U and U^T of each level), f32 and bf16 m, at 1e-6 * max|y|;
+     (the C++ coarsener) for their seconds; the slab forms; then K1
+     (the block-window kernel) in one launch on every whole 8-row slab
+     form (A, U and U^T of each level) against its one-launch twin and
+     against the per-bucket twin route, f32 and bf16 m, at 1e-6 * max|y|,
+     twice on one input (bitwise equal);
   4. fixture parity: assets/halo_hierarchy.npz on the card against the
      same fixture on the CPU (one V-cycle, and MG-PCG iterations);
   5. the main path at 1M: V-cycle time (CUDA events, median), MG-PCG
      and mg_solve (bf16-preconditioned flexible CG at this size) to
-     1e-8, with the kernel's launch count over this phase; fails if a
+     1e-8, with K1's launch count over this phase and over one counted
+     V-cycle, where it must equal the cycle's slab matvecs; fails if a
      level of at least 4096 rows lacks a slab form; then the same two
      solves on the greedy hierarchy of the C++ coarsener (iteration
      counts within 2 of the main path's);
-  6. timing: the kernel against its twin, per level-0 A matvec;
-  7. profile: torch.profiler over one 1M V-cycle (device busy share, top
-     device kernels), the level-0 A matvec as slab against the plain
-     ELL gather, and the kernel's time per level-0 bucket;
+  6. timing of K1 on the level-0 A matvec, f32 and bf16 m: per call and
+     alone, the one-launch twin, the per-bucket route, bound and share,
+     the library's torch.bmm, and B1 on x as a (V, 1) matrix (a
+     reference row);
+  7. profile: torch.profiler over one 1M V-cycle (device busy share,
+     device operations, top device kernels), the level-0 A matvec as
+     slab (K1 alone) against the plain ELL gather;
   8. the 1M level-0 A's window counts at 128-row blocks: the blocks that
      need more than 24 windows keep the transposed-tile (mxu) form off
      the 1M fine level, so its path runs at 200k;
@@ -73,8 +79,9 @@ script exits nonzero:
  13. the apps at 1M on phase 3's hierarchy and graph (run after phase
      8): ``heat_geodesics`` from vertex 0 (seconds of each refit,
      iterations, residual and seconds of both MG-PCG solves, each to
-     1e-8, and the block-window kernel's launches over the phase, which
-     the refit's kept U and U^T forms make; phi finite, phi[0] = 0, the
+     1e-8, and K1's launches over the phase, which the refit's kept U
+     and U^T forms make, equal to heat_geodesics' slab matvecs; phi
+     finite, phi[0] = 0, the
      mean of phi over bins of distance from the source rising over the
      first half of the distance range), then one ``implicit_smooth`` step
      (a (V, 3) stationary solve: A on the ELL gather, U and U^T through
@@ -135,8 +142,9 @@ script exits nonzero:
      levels are those of HALO_1M.json): S and halo_frac of every level's
      A, U and U^T beside the recorded ones, host seconds.
 
-Phases 13-17 are functions of (torch, device, n, ...) that also run on
-the CPU at a small n (tests/test_torch_smoke_phases.py,
+Phases 3 (K1's check), 5, 6 and 13-17 are functions of (torch, device,
+n, ...) that also run on the CPU at a small n
+(tests/test_torch_smoke_k1.py, tests/test_torch_smoke_phases.py,
 tests/test_torch_smoke_multidevice.py), but for 15 (b), which needs
 phase 3's hierarchy on the card.
 
@@ -145,7 +153,8 @@ inputs and outputs that it must move, each once, over the H100's
 published 3.35 TB/s, or its multiply-adds (two operations each) over the
 published 67 TFLOP/s of f32 outside the tensor cores, whichever is
 larger (bytes for all four: B1's multiply-adds are counted on the
-positions it multiplies, those where a block's 8 rows hold a nonzero);
+positions it multiplies, those where a block's 8 rows hold a nonzero;
+K1's bytes are those of the blocks inv_block_perm names);
 gravomg_tpu_torch/probes/timing.py computes it.  A share of the bound
 above 1.05 means a count is wrong, and fails the run.
 
@@ -328,13 +337,98 @@ def _slabs(h, mxu=False):
     return slab_forms(h, mxu)
 
 
-def phase_kernel_check(torch, h):
-    """The kernel against its twin on every bucket of every slab form of
-    the 1M hierarchy (A, U and U^T of each level), f32 and bf16 m."""
+def slab_min_rows(n: int) -> int:
+    """Rows a level needs for its slab forms: the JAX package's 4096 at
+    the card's sizes, a quarter of ``n`` below 16,384 points (so that a
+    small run on the CPU still has one)."""
+    return min(4096, n // 4)
+
+
+def k1_problem(torch, device, n):
+    """The bench recipe at ``n`` points on ``device`` for phases 3, 5 and
+    6 when phase 3's set-up did not run (the CPU test): the hierarchy of
+    ``build_hierarchy_device`` with its 8-row slab forms, and the greedy
+    one of ``build_hierarchy_host``.  Returns (config, hierarchy, greedy
+    hierarchy)."""
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.probes.mxu_levels import bench_hierarchy
+    cfg, h, _, graph, op = bench_hierarchy(n, device)
+    h_greedy = gt.build_hierarchy_host(graph, op, cfg)
+    return (cfg, gt.attach_slab_operators(h, min_rows=slab_min_rows(n)),
+            h_greedy)
+
+
+def _per_bucket_route(torch, sop, x, bucket_fn):
+    """The route a 1-D x took before one launch: ``bucket_fn`` (K1 over
+    one bucket, or its twin) per bucket, x padded once, the buckets laid
+    end to end, un-permuted by inv_block_perm, plus the diagonal."""
+    from gravomg_tpu_torch.ops.blockdense import pad_x
+    xp = pad_x(sop.buckets[0], x)
+    y = torch.cat([bucket_fn(b, x, xp).reshape(-1, 8) for b in sop.buckets])
+    y = y[sop.inv_block_perm.long()].reshape(-1)[:sop.n_rows]
+    return y if sop.diag is None else y + sop.diag * x
+
+
+def phase_kernel_check(torch, device, n, h=None):
+    """Phase 3's check: K1 in one launch on every whole 8-row slab form
+    of ``h`` (A, U and U^T of each slab slot; built here at ``n`` points
+    when None) against the one-launch twin and the per-bucket twin route,
+    f32 and bf16 m, at ``TOL_KERNEL``, twice on one input (on the card
+    the two y bitwise equal, one launch each).  On the CPU the dispatch
+    takes the twin, which then meets the per-bucket route."""
     from gravomg_tpu_torch.ops.blockdense_cuda import (
-        blockdense_matvec_cuda, blockdense_matvec_plain)
-    return _check_buckets(torch, _slabs(h), blockdense_matvec_cuda,
-                          blockdense_matvec_plain, "3", "kernel")
+        blockdense_matvec_cuda, blockdense_matvec_plain, slab_matvec_1d_fast,
+        slab_matvec_plain)
+    from gravomg_tpu_torch.utils.stage import synchronize
+    if h is None:
+        h = k1_problem(torch, device, n)[1]
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    slabs = _slabs(h)
+    if not slabs:
+        raise AssertionError("no 8-row slab form to check K1 on")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, worst_rel, worst_abs = [], 0.0, 0.0
+    for label, sop in slabs:
+        x = torch.randn(sop.n_cols, generator=gen, device=dev)
+        worst = {}
+        for dt in (torch.float32, torch.bfloat16):
+            name = _dtype_name(dt)
+            sd = _slab_on(sop, dt)
+            before = blockdense_matvec_cuda.launches
+            y1 = slab_matvec_1d_fast(sd, x)
+            y2 = slab_matvec_1d_fast(sd, x)
+            synchronize(dev)
+            if on_card and blockdense_matvec_cuda.launches != before + 2:
+                raise AssertionError(f"K1 on {label}: not one launch a "
+                                     f"matvec")
+            if not torch.equal(y1, y2):
+                raise AssertionError(f"K1 on {label} {name}: two runs on "
+                                     f"one input differ")
+            refs = {"one-launch twin": slab_matvec_plain(sd, x),
+                    "per-bucket twins": _per_bucket_route(
+                        torch, sd, x, blockdense_matvec_plain)}
+            worst[name] = 0.0
+            for what, yp in refs.items():
+                err = float((y1 - yp).abs().max())
+                rel = err / max(float(yp.abs().max()), 1e-30)
+                worst[name] = max(worst[name], rel)
+                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+                rows.append({"slab": label, "dtype": name, "against": what,
+                             "max_abs_err": err, "rel_err": rel})
+                if not rel <= TOL_KERNEL:
+                    raise AssertionError(
+                        f"K1 on {label} {name} against the {what}: "
+                        f"{rel:.3e} > {TOL_KERNEL}")
+        print(f"[3] K1 one launch vs twins {label:6s} {sop.n_rows}x"
+              f"{sop.n_cols}, caps {[b.nw for b in sop.buckets]}: "
+              f"max|d|/max|y| f32 {worst['float32']:.3e}, bf16 "
+              f"{worst['bfloat16']:.3e}"
+              + ("; bitwise repeatable" if on_card else ""))
+    print(f"[3] K1 ok on {len(slabs)} slab forms in one launch each, f32 "
+          f"and bf16 m, against the one-launch twin and the per-bucket "
+          f"twins, worst {worst_rel:.3e} <= {TOL_KERNEL}")
+    return {"forms": rows, "worst_rel": worst_rel, "worst_abs": worst_abs}
 
 
 def _check_buckets(torch, slabs, kernel, plain, tag, what):
@@ -411,12 +505,13 @@ def _fmt(v, digits=3) -> str:
 
 
 def _m_bytes_read(op):
-    """Bytes of m one slab matvec of ``op`` reads: every block of every
-    bucket through the block-window kernel; through the transposed-tile
-    kernel the tiles its work table names (padding blocks have no item)."""
+    """Bytes of m one slab matvec of ``op`` reads: through K1 the blocks
+    inv_block_perm names; through the transposed-tile kernel the tiles
+    its work table names (padding blocks are read by neither)."""
     from gravomg_tpu_torch.ops.mxu_cuda import plan_bytes
+    from gravomg_tpu_torch.probes.timing import slab_m_read
     if not op.mxu:
-        return op.m_bytes
+        return slab_m_read(op)
     return plan_bytes(op.buckets, op.plan)["tiles"]
 
 
@@ -427,6 +522,7 @@ def _cycle_account(torch, cfg, h, b, wrapper, tag, what):
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.probes.timing import HBM_BYTES_PER_S
     from gravomg_tpu_torch.solve import vcycle
+    from gravomg_tpu_torch.utils.stage import synchronize
     seen = {"matvecs": 0, "m_bytes": 0}
     inner = vcycle.slab_matvec
 
@@ -439,33 +535,49 @@ def _cycle_account(torch, cfg, h, b, wrapper, tag, what):
     vcycle.slab_matvec = counted
     try:
         gt.v_cycle(h, torch.zeros_like(b), b, cfg)
-        torch.cuda.synchronize()
+        synchronize(b.device)
     finally:
         vcycle.slab_matvec = inner
     seen["launches"] = wrapper.launches - before
     seen["bound_ms"] = seen["m_bytes"] / HBM_BYTES_PER_S * 1e3
     print(f"[{tag}] one V-cycle: {seen['matvecs']} slab matvecs, "
-          f"{seen['launches']} launches of the {what}, m bytes read "
+          f"{seen['launches']} launches of {what}, m bytes read "
           f"{seen['m_bytes']}, bound {seen['bound_ms']:.3f} ms (bytes of m "
           f"over {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
     return seen
 
 
-def phase_main(torch, cfg, h, h_greedy):
+def phase_main(torch, device, n, problem=None):
+    """Phase 5: the main path at ``n`` points on ``device``; ``problem``
+    is (config, hierarchy with its slab forms, greedy hierarchy) of phase
+    3, else :func:`k1_problem` builds it.  MG-PCG and ``mg_solve`` to
+    1e-8, fails if a slab slot lacks its slab form, the same two solves
+    on the greedy hierarchy (within 2 iterations).  On the card also the
+    V-cycle's time; K1's launches over the cycle timing and the solves
+    (set to 0 just before, read just after), which must be above 0; and
+    over one counted V-cycle, which must equal its slab matvecs."""
     import numpy as np
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_cuda
     from gravomg_tpu_torch.probes.timing import cuda_ms
-    b = torch.as_tensor(np.random.default_rng(0).normal(size=N)
-                        .astype(np.float32), device="cuda")
+    from gravomg_tpu_torch.solve.vcycle import slab_slots
+    from gravomg_tpu_torch.utils.stage import synchronize
+    cfg, h, h_greedy = (k1_problem(torch, device, n) if problem is None
+                        else problem)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    min_rows = slab_min_rows(n)
+    b = torch.as_tensor(np.random.default_rng(0).normal(size=n)
+                        .astype(np.float32), device=dev)
     blockdense_matvec_cuda.launches = 0
-    vc_ms = cuda_ms(lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
-    out = {"vcycle_ms": vc_ms}
+    vc_ms = (cuda_ms(lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
+             if on_card else None)
+    out = {"n": n, "vcycle_ms": vc_ms}
     for name, solver in (("mg_pcg", gt.mg_pcg), ("mg_solve", gt.mg_solve)):
-        torch.cuda.synchronize()
+        synchronize(dev)
         t0 = time.perf_counter()
         x, rel, it = solver(h, b, cfg)
-        torch.cuda.synchronize()
+        synchronize(dev)
         wall = time.perf_counter() - t0
         ok = (x.shape == b.shape and x.dtype == torch.float32
               and bool(torch.isfinite(x).all()))
@@ -476,27 +588,33 @@ def phase_main(torch, cfg, h, h_greedy):
             raise AssertionError(f"{name} failed: rel {rel}, finite/shape "
                                  f"ok {ok}")
     launches = blockdense_matvec_cuda.launches
-    out["cycle"] = _cycle_account(torch, cfg, h, b, blockdense_matvec_cuda,
-                                  "5", "block-window kernel")
-    from gravomg_tpu_torch.solve.vcycle import slab_slots
-    slots = slab_slots(h)
+    out["cycle"] = cyc = _cycle_account(torch, cfg, h, b,
+                                        blockdense_matvec_cuda, "5", "K1")
+    slots = slab_slots(h, min_rows)
     missing = [s for s in slots if getattr(h.levels[s[0]], s[1]) is None]
     if missing:
         raise AssertionError(f"levels without their slab forms (the plain "
                              f"ELL gather would stand in for the kernel): "
                              f"{missing}")
+    if not slots:
+        raise AssertionError(f"no slab slot at {n} points")
     mb = [[None if s is None else s.m_bytes
            for s in (lvl.banded, lvl.uw, lvl.utw)] for lvl in h.levels]
-    print(f"[5] V-cycle {vc_ms:.3f} ms (median of 10, CUDA events); "
-          f"levels {[lvl.op.num_vertices for lvl in h.levels]}")
+    print(f"[5] V-cycle " + ("not measured" if vc_ms is None else
+                             f"{vc_ms:.3f} ms (median of 10, CUDA events)")
+          + f"; levels {[lvl.op.num_vertices for lvl in h.levels]}")
     print(f"[5] slab m bytes per level [A, U, U^T]: {mb}")
-    print(f"[5] all {len(slots)} slab slots (A, U, U^T of levels >= 4096 "
-          f"rows) hold slab forms; block-window kernel launches in this "
-          f"phase: {launches}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
+    print(f"[5] all {len(slots)} slab slots (A, U, U^T of levels >= "
+          f"{min_rows} rows) hold slab forms; K1 launches in this phase's "
+          f"cycle timing and solves: {launches}; in one V-cycle "
+          f"{cyc['launches']} for {cyc['matvecs']} slab matvecs")
+    if on_card and launches <= 0:
+        raise AssertionError("the main path never launched K1")
+    if on_card and cyc["launches"] != cyc["matvecs"]:
+        raise AssertionError(f"K1 launched {cyc['launches']} times for "
+                             f"{cyc['matvecs']} slab matvecs, not once each")
     out.update(launches=launches, m_bytes=mb)
-    hg = gt.attach_slab_operators(h_greedy)
+    hg = gt.attach_slab_operators(h_greedy, min_rows=min_rows)
     for name, solver in (("mg_pcg", gt.mg_pcg), ("mg_solve", gt.mg_solve)):
         _, rel, it = solver(hg, b, cfg)
         out[f"{name}_greedy"] = {"iters": it, "rel": rel}
@@ -510,45 +628,80 @@ def phase_main(torch, cfg, h, h_greedy):
     return out
 
 
-def phase_timing(torch, h):
+def phase_timing(torch, device, n, h=None):
+    """Phase 6: K1 on level-0 A of ``h`` (built here at ``n`` points when
+    None), f32 and bf16 m: its bound (``probes/timing.py::
+    slab_matvec_bound``) and, on the card, one launch per call and alone,
+    the one-launch twin, the per-bucket route (K1 over each bucket, the
+    buckets laid end to end, un-permuted, plus the diagonal: the route
+    before one launch), the library's ``torch.bmm`` per bucket (f32), and
+    B1 on x as a (V, 1) matrix, per call and alone (a reference row).  On
+    the CPU the bound and the twin against the per-bucket twins."""
     from gravomg_tpu_torch.ops.blockdense_cuda import (
-        blockdense_matvec_cuda, blockdense_matvec_plain)
-    from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
-                                                 library_bmm, matvec_bound)
+        blockdense_matvec_cuda, blockdense_matvec_plain, slab_matmat_cuda,
+        slab_matvec_1d_fast, slab_matvec_cuda, slab_matvec_plain)
+    from gravomg_tpu_torch.probes.timing import (cuda_ms, kernel_ms,
+                                                 library_bmm, slab_m_read,
+                                                 slab_matvec_bound)
+    if h is None:
+        h = k1_problem(torch, device, n)[1]
+    dev = torch.device(device)
     a0 = h.levels[0].banded
-    x = torch.randn(a0.n_cols, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(1))
+    x = torch.randn(a0.n_cols, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
     res = {}
     for dt in (torch.float32, torch.bfloat16):
-        bs = [_bucket_on(b, dt) for b in a0.buckets]
-        kern = bucket_loop(blockdense_matvec_cuda, bs, x)
-        plain = bucket_loop(blockdense_matvec_plain, bs, x)
+        name = _dtype_name(dt)
+        sd = _slab_on(a0, dt)
+        bound_ms, bound_by, io_bytes = slab_matvec_bound(sd, x)
+        mbytes = slab_m_read(sd)
+        row = res[name] = {"m_bytes": mbytes, "io_bytes": io_bytes,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+        if dev.type != "cuda":
+            y = slab_matvec_1d_fast(sd, x)
+            yp = _per_bucket_route(torch, sd, x, blockdense_matvec_plain)
+            row["twin_rel_err"] = float((y - yp).abs().max()
+                                        / yp.abs().max())
+            print(f"[6] level-0 A {name}: bound {bound_ms:.6f} ms "
+                  f"({bound_by}, {io_bytes} bytes); twin vs per-bucket "
+                  f"twins {row['twin_rel_err']:.3e}")
+            continue
+        kern = lambda: slab_matvec_cuda(sd, x)
+        plain = lambda: slab_matvec_plain(sd, x)
         # plain, kernel, kernel, plain: compare within one call.
         p1 = cuda_ms(plain)
         k1 = cuda_ms(kern)
         k2 = cuda_ms(kern)
         p2 = cuda_ms(plain)
-        name = _dtype_name(dt)
-        mbytes = sum(b.m.numel() * b.m.element_size() for b in bs)
-        k_ms = min(k1, k2)
-        bound_ms, bound_by, io_bytes = matvec_bound(bs, x)
+        alone = kernel_ms(kern, "blockdense_matvec_kernel")
+        per_bucket = cuda_ms(lambda: _per_bucket_route(
+            torch, sd, x, blockdense_matvec_cuda))
         # No library call for bf16 m: torch.bmm in bf16 rounds its output.
-        lib_ms = (cuda_ms(library_bmm(bs, x))
+        lib_ms = (cuda_ms(library_bmm(list(sd.buckets), x))
                   if dt == torch.float32 else None)
-        res[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                     "m_bytes": mbytes, "io_bytes": io_bytes,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "share_of_bound": bound_ms / k_ms,
-                     "library_ms": lib_ms,
-                     "kernel_GBps": mbytes / (k_ms * 1e-3) / 1e9}
-        print(f"[6] level-0 A ({len(bs)} buckets, m {mbytes / 1e9:.3f} GB "
-              f"{name}): kernel {k1:.3f}/{k2:.3f} ms, twin {p1:.3f}/"
-              f"{p2:.3f} ms per matvec ({res[name]['kernel_GBps']:.0f} GB/s "
-              f"of m through the kernel, escape and diag included); bound "
-              f"{bound_ms:.3f} ms ({bound_by}, {io_bytes} bytes), share "
-              f"{bound_ms / k_ms:.2f}; library (one torch.bmm per bucket, "
-              f"windows already gathered) "
-              + ("none" if lib_ms is None else f"{lib_ms:.3f} ms"))
+        x1 = x[:, None]
+        b1_ms = cuda_ms(lambda: slab_matmat_cuda(sd, x1))
+        b1_alone = kernel_ms(lambda: slab_matmat_cuda(sd, x1),
+                             "blockdense_matmat_kernel")
+        k_ms = min(k1, k2)
+        row.update(kernel_ms=[k1, k2], plain_ms=[p1, p2], alone_ms=alone,
+                   per_bucket_ms=per_bucket, library_ms=lib_ms,
+                   b1_v1_ms=b1_ms, b1_v1_alone_ms=b1_alone,
+                   share_of_bound=bound_ms / k_ms,
+                   alone_share_of_bound=(None if alone is None
+                                         else bound_ms / alone),
+                   kernel_GBps=mbytes / (k_ms * 1e-3) / 1e9)
+        print(f"[6] level-0 A ({len(sd.buckets)} buckets, m read "
+              f"{mbytes / 1e9:.3f} GB {name}): K1 one launch per call "
+              f"{k1:.3f}/{k2:.3f} ms, alone {_fmt(alone)} ms; twin "
+              f"{p1:.3f}/{p2:.3f} ms; per-bucket route {per_bucket:.3f} "
+              f"ms; bound {bound_ms:.3f} ms ({bound_by}, {io_bytes} bytes), "
+              f"share {bound_ms / k_ms:.2f} (alone "
+              f"{_fmt(row['alone_share_of_bound'], 2)}); library (one "
+              f"torch.bmm per bucket, windows already gathered) "
+              + ("none" if lib_ms is None else f"{lib_ms:.3f} ms")
+              + f"; B1 on x as (V, 1): per call {b1_ms:.3f} ms, alone "
+              f"{_fmt(b1_alone)} ms")
     return res
 
 
@@ -561,7 +714,8 @@ def _device_us(evt) -> float:
 
 def _profile_vcycle(torch, cfg, h, b, vcycle_ms, tag):
     """torch.profiler over one V-cycle: device time, busy share against
-    ``vcycle_ms`` and the top device kernels."""
+    ``vcycle_ms``, device operations (kernels and copies) and the top
+    device kernels."""
     import gravomg_tpu_torch as gt
     from torch.profiler import ProfilerActivity, profile
     gt.v_cycle(h, torch.zeros_like(b), b, cfg)
@@ -580,20 +734,23 @@ def _profile_vcycle(torch, cfg, h, b, vcycle_ms, tag):
     rows = [{"name": e.key[:80], "calls": e.count,
              "device_ms": _device_us(e) / 1e3} for e in top]
     share = dev_ms / vcycle_ms if vcycle_ms else float("nan")
+    ops = sum(e.count for e in evts)
     print(f"[{tag}] V-cycle device time {dev_ms:.3f} ms of {vcycle_ms:.3f} "
-          f"ms (busy share {share:.2f}, idle {1 - share:.2f}); "
-          f"{sum(e.count for e in evts)} device ops")
+          f"ms (busy share {share:.2f}, idle {1 - share:.2f}); {ops} device "
+          f"operations (kernels and copies) in the cycle")
     for r in rows:
         print(f"[{tag}]   {r['device_ms']:8.3f} ms {r['calls']:6d}x "
               f"{r['name']}")
-    return {"vcycle_device_ms": dev_ms, "busy_share": share, "top": rows}
+    return {"vcycle_device_ms": dev_ms, "busy_share": share,
+            "device_ops": ops, "top": rows}
 
 
 def phase_profile(torch, cfg, h, vcycle_ms):
-    """Where a 1M V-cycle's device time goes, and the level-0 A matvec
-    as slab (kernel) against the plain ELL gather."""
+    """Phase 7: where a 1M V-cycle's device time goes (busy share, device
+    operations, top kernels), and the level-0 A matvec as slab (K1) per
+    call and K1 alone against the plain ELL gather."""
     import gravomg_tpu_torch as gt
-    from gravomg_tpu_torch.probes.timing import cuda_ms, kernel_events
+    from gravomg_tpu_torch.probes.timing import cuda_ms, kernel_ms
     b = torch.randn(N, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(2))
     out = _profile_vcycle(torch, cfg, h, b, vcycle_ms, "7")
@@ -603,29 +760,12 @@ def phase_profile(torch, cfg, h, vcycle_ms):
     hb = gt.cast_fast_operators(h, torch.bfloat16)
     for name, lvl in (("float32", lvl0), ("bfloat16", hb.levels[0])):
         slab_ms = cuda_ms(lambda: gt.level_matvec(lvl, x))
-        # Each bucket's kernel alone, in launch (= bucket) order.
-        kev = kernel_events(lambda: gt.level_matvec(lvl, x),
-                            "blockdense_matvec_kernel")
-        k1_ms = sum(us for _, us in kev) / 1e3
+        k1_ms = kernel_ms(lambda: gt.level_matvec(lvl, x),
+                          "blockdense_matvec_kernel")
         print(f"[7] level-0 A matvec, {name} m: slab {slab_ms:.3f} ms (K1 "
-              f"kernels alone {k1_ms:.3f} ms), plain ELL gather (f32) "
+              f"alone {_fmt(k1_ms)} ms), plain ELL gather (f32) "
               f"{ell_ms:.3f} ms")
-        per_bucket = []
-        if len(kev) == len(lvl.banded.buckets):
-            for b, (_, us) in zip(lvl.banded.buckets, kev):
-                nbytes = b.m.numel() * b.m.element_size()
-                per_bucket.append({"nw": b.nw, "nblk": b.m.shape[0],
-                                   "m_bytes": nbytes, "us": us,
-                                   "GBps": nbytes / max(us, 1e-3) / 1e3})
-            print(f"[7] K1 per level-0 bucket, {name} (cap nblk: us, GB/s "
-                  f"of m): " + "; ".join(
-                      f"{r['nw']} {r['nblk']}: {r['us']:.1f}, "
-                      f"{r['GBps']:.0f}" for r in per_bucket))
-        else:
-            print(f"[7] K1 per bucket: {len(kev)} kernel events for "
-                  f"{len(lvl.banded.buckets)} buckets, not matched")
-        out[name] = {"slab_matvec_ms": slab_ms, "k1_kernels_ms": k1_ms,
-                     "k1_per_bucket": per_bucket}
+        out[name] = {"slab_matvec_ms": slab_ms, "k1_kernel_ms": k1_ms}
     return out
 
 
@@ -768,7 +908,7 @@ def phase_mxu_main(torch, cfg, hm, dev, out):
             raise AssertionError("the mxu path never launched the "
                                  "transposed-tile kernel")
         out["cycle"] = _cycle_account(torch, cfg, h, b, mxu_matvec_cuda,
-                                      "9", "transposed-tile kernel")
+                                      "9", "the transposed-tile kernel")
         out["profile"] = _profile_vcycle(torch, cfg, h, b,
                                          out["vcycle_ms"], "9")
     return out
@@ -891,10 +1031,10 @@ def phase_mxu_timing(torch, hm, a0_vpu):
     """Per level and slot, the one-launch kernel per matvec (x's padding
     included) against its bound, the per-bucket twins and the library's
     bmm (``probes/mxu_levels.py::measure_form``); then level-0 A in the
-    8-row slab form through the block-window kernel; f32 and bf16 m."""
-    from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_cuda
+    8-row slab form through K1; f32 and bf16 m."""
+    from gravomg_tpu_torch.ops.blockdense_cuda import slab_matvec_cuda
     from gravomg_tpu_torch.probes.mxu_levels import measure_form
-    from gravomg_tpu_torch.probes.timing import bucket_loop, cuda_ms
+    from gravomg_tpu_torch.probes.timing import cuda_ms, slab_m_read
     res = {}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, sop in _slabs(hm, mxu=True):
@@ -918,15 +1058,16 @@ def phase_mxu_timing(torch, hm, a0_vpu):
                      else f"{r['library_ms']:.3f} ms"))
     x = torch.randn(a0_vpu.n_cols, device="cuda", generator=gen)
     for dt in (torch.float32, torch.bfloat16):
-        vs = [_bucket_on(b, dt) for b in a0_vpu.buckets]
-        v1 = cuda_ms(bucket_loop(blockdense_matvec_cuda, vs, x))
-        v2 = cuda_ms(bucket_loop(blockdense_matvec_cuda, vs, x))
+        vs = _slab_on(a0_vpu, dt)
+        v1 = cuda_ms(lambda: slab_matvec_cuda(vs, x))
+        v2 = cuda_ms(lambda: slab_matvec_cuda(vs, x))
         name = _dtype_name(dt)
-        vb = sum(b.m.numel() * b.m.element_size() for b in vs)
+        vb = slab_m_read(vs)
         res[f"vpu {name}"] = {"vpu_ms": [v1, v2], "vpu_m_bytes": vb,
                               "vpu_GBps": vb / (min(v1, v2) * 1e-3) / 1e9}
-        print(f"[9] level-0 A {name}: 8-row slab form ({len(vs)} buckets, m "
-              f"{vb / 1e9:.3f} GB) block-window kernel {v1:.3f}/{v2:.3f} ms "
+        print(f"[9] level-0 A {name}: 8-row slab form ({len(vs.buckets)} "
+              f"buckets, m read {vb / 1e9:.3f} GB) K1 in one launch "
+              f"{v1:.3f}/{v2:.3f} ms "
               f"({res[f'vpu {name}']['vpu_GBps']:.0f} GB/s)")
     return res
 
@@ -1035,8 +1176,9 @@ def phase_apps(torch, device, n, problem=None):
     ``implicit_smooth`` step on the bench recipe's hierarchy with slab
     forms at ``n`` points on ``device``; ``problem`` is (config, solver
     hierarchy, graph) of phase 3, else the recipe is built here.  On the
-    card the block-window kernel's launches over the phase, and B1's in
-    the (V, 3) smoothing solve, must be above 0."""
+    card K1's launches over the phase, and B1's in the (V, 3) smoothing
+    solve, must be above 0, and K1's over ``heat_geodesics`` must equal
+    its slab matvecs."""
     import dataclasses
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matmat_cuda,
@@ -1054,7 +1196,9 @@ def phase_apps(torch, device, n, problem=None):
     heat = out["heat"] = {}
     synchronize(dev)
     t0 = time.perf_counter()
-    phi = gt.heat_geodesics(graph, h, 0, cfg=cfg, record=heat)
+    phi, heat["slab_matvecs"] = _count_slab_matvecs(
+        torch, lambda: gt.heat_geodesics(graph, h, 0, cfg=cfg, record=heat),
+        ndim=1)
     synchronize(dev)
     heat["total_s"] = time.perf_counter() - t0
     heat["k1_launches"] = blockdense_matvec_cuda.launches
@@ -1070,8 +1214,9 @@ def phase_apps(torch, device, n, problem=None):
     finite = bool(torch.isfinite(phi).all())
     heat.update(bin_means=means, rising=rising, finite=finite,
                 phi0=float(phi_np[0]), phi_max=float(phi_np.max()))
-    print(f"[13] heat_geodesics {heat['total_s']:.3f} s in all; block-window "
-          f"kernel launches {heat['k1_launches']}; phi finite {finite}, "
+    print(f"[13] heat_geodesics {heat['total_s']:.3f} s in all; K1 "
+          f"launches {heat['k1_launches']} for {heat['slab_matvecs']} slab "
+          f"matvecs; phi finite {finite}, "
           f"phi[0] {heat['phi0']}, max {heat['phi_max']:.4g}; mean phi over "
           f"the first 8 of 16 bins of distance from the source "
           f"{[round(m, 4) for m in means]}")
@@ -1098,13 +1243,15 @@ def phase_apps(torch, device, n, problem=None):
           f"{step['solve_s']:.3f} s; {smooth['total_s']:.3f} s in all; "
           f"finite {finite}, mean move {moved:.3e}; B1 launches (its U and "
           f"U^T transfers) {smooth['b1_launches']}")
-    print(f"[13] block-window kernel launches over the phase: "
-          f"{out['k1_launches']}")
+    print(f"[13] K1 launches over the phase: {out['k1_launches']}")
     if not finite:
         raise AssertionError("implicit_smooth returned non-finite points")
     if dev.type == "cuda" and out["k1_launches"] <= 0:
-        raise AssertionError("the apps never launched the block-window "
-                             "kernel")
+        raise AssertionError("the apps never launched K1")
+    if dev.type == "cuda" and heat["k1_launches"] != heat["slab_matvecs"]:
+        raise AssertionError(f"heat_geodesics: K1 launched "
+                             f"{heat['k1_launches']} times for "
+                             f"{heat['slab_matvecs']} slab matvecs")
     if dev.type == "cuda" and smooth["b1_launches"] <= 0:
         raise AssertionError("implicit_smooth never launched B1")
     return out
@@ -1341,20 +1488,21 @@ def _nonzero_positions(slabs, tag):
     return out
 
 
-def _count_slab_matvecs(torch, fn):
-    """(result of fn(), number of 2-D x the 8-row slab forms took in it),
-    counted at the cycle's call of ``slab_matvec``."""
+def _count_slab_matvecs(torch, fn, ndim=2):
+    """(result of fn(), number of ``ndim``-D x the 8-row slab forms took
+    in it), counted at the cycle's call of ``slab_matvec``."""
     from gravomg_tpu_torch.solve import vcycle as vc
     inner, count = vc.slab_matvec, [0]
 
     def counted(op, x):
-        if x.ndim == 2 and not op.mxu:
+        if x.ndim == ndim and not op.mxu:
             count[0] += 1
         return inner(op, x)
     vc.slab_matvec = counted
     try:
         res = fn()
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     finally:
         vc.slab_matvec = inner
     return res, count[0]
@@ -1870,12 +2018,12 @@ def main() -> int:
     t_start = time.perf_counter()
     report = {"env": phase_environment(torch), "build": phase_build()}
     cfg, h, h_greedy, report["setup"], graph = phase_setup(torch)
-    report["kernel_check"] = phase_kernel_check(torch, h)
+    report["kernel_check"] = phase_kernel_check(torch, "cuda", N, h)
     report["fixture"] = phase_fixture(torch)
-    report["main"] = phase_main(torch, cfg, h, h_greedy)
+    report["main"] = phase_main(torch, "cuda", N, (cfg, h, h_greedy))
     # Phase 17 plans the halo exchange of the greedy hierarchy on the host.
     h_greedy = _to_device(torch, h_greedy, "cpu")
-    report["timing"] = phase_timing(torch, h)
+    report["timing"] = phase_timing(torch, "cuda", N, h)
     report["profile"] = phase_profile(torch, cfg, h,
                                       report["main"]["vcycle_ms"])
     report["windows_1m"] = phase_window_finding(h)
@@ -1898,7 +2046,7 @@ def main() -> int:
     report["mxu_check"] = _check_buckets(
         torch, _slabs(hm, mxu=True),
         lambda b, x, xp: mxu_matvec_cuda(b, x, xp, bucket_plan(b)),
-        mxu_matvec_plain, "9", "transposed-tile kernel")
+        mxu_matvec_plain, "9", "the transposed-tile kernel")
     report["mxu_slab_check"] = phase_mxu_slab_check(torch, hm)
     report["mxu_main"] = phase_mxu_main(torch, cfg, hm, "cuda", {})
     report["mxu_timing"] = phase_mxu_timing(torch, hm, a0_vpu)

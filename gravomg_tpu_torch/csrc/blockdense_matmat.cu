@@ -28,37 +28,16 @@
 // round X: the products are exact f32 FFMA on the CUDA cores.
 //
 // Design:
-//  * One launch for all buckets of a form.  The buckets' base pointers,
-//    caps and first concatenated block go in one parameter struct (at
-//    most 12 buckets); each output block finds its bucket through
-//    inv_block_perm and writes Y in row order, so no concatenation and
-//    no un-permutation pass follows.  X is read where it lies, unpadded:
-//    a window position past X's rows counts as zero, as the zero padding
-//    did.
-//  * A persistent grid of one thread block an SM (12 consumer warps, one
-//    producer warp).  Thread block i of G takes output blocks i, i + G,
-//    i + 2G, ... in rounds of 12, block j of a round being warp j's; lane
-//    j locates block j, so a round costs one dependent load of
-//    inv_block_perm, not 12.  Neighbouring blocks have similar caps, so
-//    every warp gets the same mix of caps (no sort needed), and at any
-//    time the grid works on one band of consecutive rows, whose X windows
-//    overlap in L2.
-//  * m streamed by cp.async.bulk into a 112 KB byte ring in shared
-//    memory, one full and one empty mbarrier a chunk, with an L2
-//    evict-first hint (m is read once; the X rows are read again).  A
-//    block's m is contiguous (8 x 128*cap entries), so a block of up to
-//    32 KB (cap 8 in f32, 16 in bf16: 99.4% of the 1M level-0 blocks) is
-//    one chunk and one bulk copy; a larger block is cut into chunks of
-//    32 KB of windows, 8 row copies each.  The producer warp places each
-//    chunk where the last ended, skips the ring's tail when a chunk
-//    would cross it, and reclaims chunks oldest first as their warps
-//    release them; each consumer warp recomputes the placement while
-//    walking the same chunks.  A warp may reach its chunk g before the
-//    chunk g - kChunks of the same barrier slot has landed (a round of
-//    12 blocks can hold more than kChunks chunks), and a parity wait that
-//    far ahead would return at once.  So the producer writes g into the
-//    slot's sequence word once it has reclaimed the slot, and a warp
-//    waits for that word before it waits on the slot's barrier.
+//  * One launch for all buckets of a form, Y written in row order
+//    through inv_block_perm (no concatenation, no un-permutation pass
+//    follows), m streamed once by cp.async.bulk into a 112 KB byte ring
+//    in shared memory, a persistent grid of one thread block an SM with
+//    12 consumer warps, each issuing the copies of its own chunks, and one
+//    warp that allocates the ring: the ring of block_ring.cuh, which K1
+//    shares.  A block of up to 32 KB (cap 8 in f32, 16 in bf16: 99.4% of
+//    the 1M level-0 blocks) is one chunk and one bulk copy.  X
+//    is read where it lies, unpadded: a window position past X's rows
+//    counts as zero, as the zero padding did.
 //  * Zero positions skipped at run time.  When a chunk has arrived its
 //    warp reads each window's 8 x 128 entries (lane t: positions
 //    4t..4t+3 of every row), flags the positions where any row is
@@ -94,187 +73,34 @@
 //    whatever m's type, and a producer whose lanes waited apart (lane 0
 //    issuing, the others at the next shuffle) near 0.70 ms at D = 3; with
 //    whole-block copies, the round walk, the producer in step and the
-//    evict-first hint it takes 0.615 / 0.514 ms at D = 3 (f32 / bf16 m)
-//    and 0.909 / 0.875 ms at D = 64.  At D = 64 the X rows, about 1.6 GB
-//    through L2 (nearly m's bytes again), now set the pace.
+//    evict-first hint it took 0.615 / 0.514 ms at D = 3 (f32 / bf16 m)
+//    and 0.909 / 0.875 ms at D = 64; with each consumer warp issuing its
+//    own copies 0.619 / 0.382 and 0.818 / 0.696 ms (NVIDIA H100 80GB HBM3
+//    at 700 W).  At D = 64 the X rows, about 1.6 GB through L2 (nearly
+//    m's bytes again), set the pace.
 //
 // Requirements (checked by the Python wrapper): 8-row blocks, window
 // starts multiples of 128; m, win_start, inv and X contiguous, m and X
 // 16-byte aligned.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+#include "block_ring.cuh"
 
 namespace {
 
-constexpr int kBlk = 8;                 // rows of a block
-constexpr int kWin = 128;               // columns of a window
-constexpr int kWarps = 12;              // consumer warps of a thread block
-constexpr int kThreads = 32 * (kWarps + 1);
-constexpr int kRingBytes = 112 * 1024;  // m ring of the thread block
-constexpr int kChunkMax = 32 * 1024;    // largest chunk of m in the ring
-constexpr int kChunks = 32;             // chunks in flight at most
+using namespace gmg_ring;
+
 constexpr int kList = 256;              // list entries of one warp
-constexpr int kMaxBuckets = 12;
+constexpr int kWarps = 12;              // consumer warps of a thread block
+constexpr int kRingBytes = 112 * 1024;  // m ring of the thread block
+// The ring: chunks of at most 32 KB, at most 32 in flight.
+template <typename T>
+using B1Ring = Ring<T, kWarps, kRingBytes, 32 * 1024, 32>;
+constexpr int kThreads = B1Ring<float>::kThreads;
 constexpr int kSmemBytes = kRingBytes + kWarps * kList * 36
-                           + kChunks * (2 * 8 + 4 + 4);
-constexpr unsigned kFull = 0xffffffffu;
-// A wait that outlasts this many clock cycles (about two seconds) means
-// a copy was lost: trap, so that the caller sees an error, not a hang.
-constexpr long long kSpinLimit = 4000000000LL;
-
-struct Forms {
-    const void* m[kMaxBuckets];
-    const int32_t* win_start[kMaxBuckets];
-    int cap[kMaxBuckets];
-    int start[kMaxBuckets];     // first concatenated block of the bucket
-    int n_buckets;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-    uint32_t ok;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-    return ok != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    if (mbar_try_wait(bar, parity)) return;
-    const long long t0 = clock64();
-    while (!mbar_try_wait(bar, parity))
-        if (clock64() - t0 > kSpinLimit) __trap();
-}
-
-// Wait until the producer has given barrier slot `seq` to chunk g.
-__device__ __forceinline__ void seq_wait(const volatile uint32_t* seq,
-                                         uint32_t g) {
-    if (*seq != g) {
-        const long long t0 = clock64();
-        while (*seq != g)
-            if (clock64() - t0 > kSpinLimit) __trap();
-    }
-    __threadfence_block();
-}
-
-// 1-D bulk copy global -> shared, completing on an mbarrier, its lines
-// first out of L2 (m is read once; the X rows it would evict are read
-// again).  Source, destination and size are multiples of 16 bytes.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-    uint64_t policy;
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-                 : "=l"(policy));
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
-        :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy)
-        : "memory");
-}
-
-// Four consecutive entries of a row of m in shared memory, as f32.
-__device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    return make_float4(__bfloat162float(lo.x), __bfloat162float(lo.y),
-                       __bfloat162float(hi.x), __bfloat162float(hi.y));
-}
+                           + B1Ring<float>::kSlotBytes;
 
 __device__ __forceinline__ float pick(const float4& v, int q) {
     return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// Output block o's place: bucket k and block b within it.
-__device__ __forceinline__ void locate(const Forms& f,
-                                       const int32_t* __restrict__ inv,
-                                       int64_t o, int& k, int64_t& b) {
-    const int c = inv != nullptr ? __ldg(inv + o) : static_cast<int>(o);
-    k = 0;
-#pragma unroll
-    for (int i = 1; i < kMaxBuckets; ++i)
-        if (i < f.n_buckets && c >= f.start[i]) k = i;
-    b = c - f.start[k];
-}
-
-// Lane j < kWarps of a warp: bucket k, block b and cap of output block
-// o (cap 0 past the end); the other lanes cap 0.
-__device__ __forceinline__ void locate_round(const Forms& f,
-                                             const int32_t* __restrict__ inv,
-                                             int64_t o, int64_t n_out, int lane,
-                                             int& k, int64_t& b, int& cap) {
-    k = 0;
-    b = 0;
-    cap = 0;
-    if (lane < kWarps && o < n_out) {
-        locate(f, inv, o, k, b);
-        cap = f.cap[k];
-    }
-}
-
-// Sums of the warp's slots (the lane bits from MASK down to STOP) by
-// reduce-scatter: K values a lane in, max(K / slots, 1) out, in a fixed
-// order.  A lane keeps the upper half where its bit is set.
-template <int K, int MASK, int STOP>
-__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
-    if constexpr (MASK >= STOP) {
-        if constexpr (K > 1) {
-            const bool hi = (lane & MASK) != 0;
-#pragma unroll
-            for (int i = 0; i < K / 2; ++i) {
-                const float send = hi ? v[i] : v[i + K / 2];
-                const float keep = hi ? v[i + K / 2] : v[i];
-                v[i] = keep + __shfl_xor_sync(kFull, send, MASK);
-            }
-            reduce_scatter<K / 2, MASK / 2, STOP>(v, lane);
-        } else {
-            v[0] += __shfl_xor_sync(kFull, v[0], MASK);
-            reduce_scatter<1, MASK / 2, STOP>(v, lane);
-        }
-    }
-}
-
-// A block's chunks: windows [w0, w0 + n) of its cap, n = the chunk's
-// window count (the whole block when it fits in kChunkMax bytes).
-template <typename T>
-__device__ __forceinline__ int chunk_windows(int cap, int w0) {
-    constexpr int kMaxWin = kChunkMax / (kBlk * kWin * static_cast<int>(sizeof(T)));
-    const int per = cap <= kMaxWin ? cap : kMaxWin;
-    return cap - w0 < per ? cap - w0 : per;
-}
-
-// Where a chunk of `bytes` goes in the ring after the one that ended at
-// `head`: at `head`, or at 0 when it would cross the ring's end.
-__device__ __forceinline__ uint32_t ring_place(uint32_t head, uint32_t bytes) {
-    return head + bytes > static_cast<uint32_t>(kRingBytes) ? 0u : head;
 }
 
 template <typename T, int DS, int LW>
@@ -287,99 +113,26 @@ blockdense_matmat_kernel(const __grid_constant__ Forms f,
     constexpr int kAcc = kBlk * DS;
     constexpr int kU = DS > 4 ? 2 : 8;                  // entries in flight
     constexpr int kCols = DS * LW;                      // columns a pass
-    constexpr uint32_t kWinBytes = kBlk * kWin * sizeof(T);
     static_assert(kAcc >= kLanesSlots, "a lane ends with whole sums");
+    using R = B1Ring<T>;
     extern __shared__ __align__(128) unsigned char smem[];
-    unsigned char* ring = smem;
+    const unsigned char* ring = smem;
     float4* lm0 = reinterpret_cast<float4*>(smem + kRingBytes);
     int* lx0 = reinterpret_cast<int*>(lm0 + kWarps * kList * 2);
-    uint64_t* full = reinterpret_cast<uint64_t*>(lx0 + kWarps * kList);
-    uint64_t* empty = full + kChunks;
-    uint32_t* held = reinterpret_cast<uint32_t*>(empty + kChunks);
-    volatile uint32_t* seq = held + kChunks;   // chunk a slot was given to
+    const Slots slots = R::slots(
+        reinterpret_cast<unsigned char*>(lx0 + kWarps * kList));
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
 
-    if (threadIdx.x == 0) {
-        for (int i = 0; i < kChunks; ++i) {
-            mbar_init(smem_addr(full + i), 1);
-            mbar_init(smem_addr(empty + i), 1);
-            seq[i] = 0xffffffffu;
-        }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
+    R::init(slots);
     __syncthreads();
-
-    // The walk goes by rounds of kWarps output blocks, block j of a round
-    // (o = r0 + j * stride) being warp j's; lane j of every warp locates
-    // block j, so a round costs one dependent load, not kWarps.
-    const int64_t stride = gridDim.x;
-    const int64_t span = stride * kWarps;
-
     if (warp == kWarps) {
-        // Producer: the thread block's chunks in order into the ring,
-        // each where the last one ended; a chunk's bytes (and any tail
-        // skipped before it) are held until its warp releases it, and
-        // reclaimed oldest first.  The whole warp runs this bookkeeping
-        // in step and lane 0 alone issues the copies, so no lane waits
-        // apart from the others (see "Why so" at the top).
-        uint32_t head = 0, used = 0;
-        int64_t g = 0, oldest = 0;
-        for (int64_t r0 = blockIdx.x; r0 < n_out; r0 += span) {
-            int kj, capj;
-            int64_t bj;
-            locate_round(f, inv, r0 + lane * stride, n_out, lane, kj, bj, capj);
-            for (int j = 0; j < kWarps; ++j) {
-                const int cap = __shfl_sync(kFull, capj, j);
-                const int k = __shfl_sync(kFull, kj, j);
-                const int64_t b = __shfl_sync(kFull, bj, j);
-                if (cap == 0) break;
-                const int64_t nww = static_cast<int64_t>(cap) * kWin;
-                const T* mb = static_cast<const T*>(f.m[k]) + b * kBlk * nww;
-                for (int w0 = 0; w0 < cap;) {
-                    const int nwc = chunk_windows<T>(cap, w0);
-                    const uint32_t bytes = nwc * kWinBytes;
-                    const uint32_t at = ring_place(head, bytes);
-                    const uint32_t need =
-                        bytes + (at != head ? kRingBytes - head : 0);
-                    while (g - oldest >= kChunks || kRingBytes - used < need) {
-                        const int c = static_cast<int>(oldest % kChunks);
-                        mbar_wait(smem_addr(empty + c), (oldest / kChunks) & 1);
-                        used -= held[c];
-                        ++oldest;
-                    }
-                    const int c = static_cast<int>(g % kChunks);
-                    held[c] = need;
-                    used += need;
-                    head = at + bytes;
-                    const uint32_t bar = smem_addr(full + c);
-                    if (lane == 0) {
-                        __threadfence_block();
-                        seq[c] = static_cast<uint32_t>(g);
-                        mbar_expect_tx(bar, bytes);
-                        if (nwc == cap) {
-                            bulk_copy(smem_addr(ring + at), mb, bytes, bar);
-                        } else {
-                            const uint32_t row = nwc * kWin * sizeof(T);
-#pragma unroll
-                            for (int r = 0; r < kBlk; ++r)
-                                bulk_copy(smem_addr(ring + at + r * row),
-                                          mb + r * nww
-                                          + static_cast<int64_t>(w0) * kWin,
-                                          row, bar);
-                        }
-                    }
-                    w0 += nwc;
-                    ++g;
-                }
-            }
-        }
+        R::produce(f, inv, n_out, slots, lane);
         return;
     }
 
     // Consumer warp `warp`: block i of the thread block's walk is warp
-    // i % kWarps's.  Every warp walks all chunks to know where each one
-    // lies in the ring (the producer's placement, recomputed).
+    // i % kWarps's (block_ring.cuh's Ring::consume).
     float4* lm = lm0 + warp * kList * 2;
     int* lx = lx0 + warp * kList;
     const int slot = lane / LW;
@@ -478,7 +231,7 @@ blockdense_matmat_kernel(const __grid_constant__ Forms f,
     // flushed (stored) at the block's end.  Several: each pass flushed at
     // once, the block's first flush storing, later ones adding.
     bool flushed = false;
-    auto consume = [&](int64_t o, int n, bool last) {
+    auto apply_list = [&](int64_t o, int n, bool last) {
         if (passes == 1) {
             multiply(n, 0);
             if (last) flush(o, 0, false);
@@ -494,112 +247,74 @@ blockdense_matmat_kernel(const __grid_constant__ Forms f,
         __syncwarp();               // the list may be written again
     };
 
-    uint32_t head = 0;
-    int64_t g = 0;
-    for (int64_t r0 = blockIdx.x; r0 < n_out; r0 += span) {
-        int kj, capj;
-        int64_t bj;
-        locate_round(f, inv, r0 + lane * stride, n_out, lane, kj, bj, capj);
-        for (int j = 0; j < kWarps; ++j) {
-            const int cap = __shfl_sync(kFull, capj, j);
-            const int k = __shfl_sync(kFull, kj, j);
-            const int64_t b = __shfl_sync(kFull, bj, j);
-            if (cap == 0) break;
-            const bool mine = j == warp;
-            const int64_t o = r0 + j * stride;
-            // Lane w < 32 holds the start of window w; windows from 32 on
-            // (an operator built with more than 32) read theirs from ws.
-            const int32_t* ws = f.win_start[k] + b * cap;
-            int wsv = 0;
-            int n = 0;
-            if (mine) {
-                if (lane < cap) wsv = __ldg(ws + lane);
+    // Lane w < 32 holds the start of window w of the warp's block;
+    // windows from 32 on (an operator built with more than 32) read
+    // theirs from ws.
+    const int32_t* ws = nullptr;
+    int wsv = 0;
+    int n = 0;
+    R::consume(
+        f, inv, n_out, ring, slots, warp, lane,
+        [&](const Block& blk, const Block&) {
+            ws = f.win_start[blk.k] + blk.b * blk.cap;
+            wsv = lane < blk.cap ? __ldg(ws + lane) : 0;
+            n = 0;
 #pragma unroll
-                for (int a = 0; a < kAcc; ++a) acc[a] = 0.0f;
-                flushed = false;
-            }
-            for (int w0 = 0; w0 < cap;) {
-                const int nwc = chunk_windows<T>(cap, w0);
-                const uint32_t bytes = nwc * kWinBytes;
-                const uint32_t at = ring_place(head, bytes);
-                head = at + bytes;
-                if (mine) {
-                    const int c = static_cast<int>(g % kChunks);
-                    seq_wait(seq + c, static_cast<uint32_t>(g));
-                    mbar_wait(smem_addr(full + c), (g / kChunks) & 1);
-                    const T* chunk =
-                        reinterpret_cast<const T*>(ring + at) + 4 * lane;
-                    for (int w = 0; w < nwc; ++w) {
-                        if (n > kList - kWin) {
-                            consume(o, n, false);
-                            n = 0;
-                        }
-                        // Positions past x's rows read x as zero: skipped.
-                        const int wi = w0 + w;
-                        const int64_t base =
-                            (wi < 32 ? __shfl_sync(kFull, wsv, wi)
-                                     : __ldg(ws + wi)) + 4 * lane;
-                        float4 mv[kBlk];
-#pragma unroll
-                        for (int r = 0; r < kBlk; ++r)
-                            mv[r] = load4(chunk + (r * nwc + w) * kWin);
-                        int rank = n;
-                        unsigned nzq[4];
-#pragma unroll
-                        for (int q = 0; q < 4; ++q) {
-                            bool nz = false;
-#pragma unroll
-                            for (int r = 0; r < kBlk; ++r)
-                                nz = nz || pick(mv[r], q) != 0.0f;
-                            nzq[q] = __ballot_sync(kFull, nz && base + q < n_x);
-                            rank += __popc(nzq[q] & lt);
-                            n += __popc(nzq[q]);
-                        }
-#pragma unroll
-                        for (int q = 0; q < 4; ++q)
-                            if ((nzq[q] >> lane) & 1u) {
-                                lm[2 * rank] = make_float4(
-                                    pick(mv[0], q), pick(mv[1], q),
-                                    pick(mv[2], q), pick(mv[3], q));
-                                lm[2 * rank + 1] = make_float4(
-                                    pick(mv[4], q), pick(mv[5], q),
-                                    pick(mv[6], q), pick(mv[7], q));
-                                lx[rank] = static_cast<int>(base) + q;
-                                ++rank;
-                            }
-                        __syncwarp();   // the list is complete
-                    }
-                    if (lane == 0) mbar_arrive(smem_addr(empty + c));
+            for (int a = 0; a < kAcc; ++a) acc[a] = 0.0f;
+            flushed = false;
+        },
+        [](int, int) {},
+        [&](const unsigned char* bytes, int64_t o, int w0, int nwc) {
+            const T* chunk = reinterpret_cast<const T*>(bytes) + 4 * lane;
+            for (int w = 0; w < nwc; ++w) {
+                if (n > kList - kWin) {
+                    apply_list(o, n, false);
+                    n = 0;
                 }
-                w0 += nwc;
-                ++g;
+                // Positions past x's rows read x as zero: skipped.
+                const int wi = w0 + w;
+                const int64_t base =
+                    (wi < 32 ? __shfl_sync(kFull, wsv, wi)
+                             : __ldg(ws + wi)) + 4 * lane;
+                float4 mv[kBlk];
+#pragma unroll
+                for (int r = 0; r < kBlk; ++r)
+                    mv[r] = load4(chunk + (r * nwc + w) * kWin);
+                int rank = n;
+                unsigned nzq[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    bool nz = false;
+#pragma unroll
+                    for (int r = 0; r < kBlk; ++r)
+                        nz = nz || pick(mv[r], q) != 0.0f;
+                    nzq[q] = __ballot_sync(kFull, nz && base + q < n_x);
+                    rank += __popc(nzq[q] & lt);
+                    n += __popc(nzq[q]);
+                }
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    if ((nzq[q] >> lane) & 1u) {
+                        lm[2 * rank] = make_float4(
+                            pick(mv[0], q), pick(mv[1], q),
+                            pick(mv[2], q), pick(mv[3], q));
+                        lm[2 * rank + 1] = make_float4(
+                            pick(mv[4], q), pick(mv[5], q),
+                            pick(mv[6], q), pick(mv[7], q));
+                        lx[rank] = static_cast<int>(base) + q;
+                        ++rank;
+                    }
+                __syncwarp();   // the list is complete
             }
-            if (mine) consume(o, n, true);
-        }
-    }
-}
-
-// Blocks the card holds at once: occupancy times SM count, or 0 on error.
-template <typename T, int DS, int LW>
-int resident_blocks() {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaFuncSetAttribute(blockdense_matmat_kernel<T, DS, LW>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes) != cudaSuccess
-            || cudaGetDevice(&dev) != cudaSuccess
-            || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev) != cudaSuccess
-            || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &per_sm, blockdense_matmat_kernel<T, DS, LW>, kThreads,
-                   kSmemBytes) != cudaSuccess)
-        return 0;
-    return per_sm * sms;
+        },
+        [&](int64_t o) { apply_list(o, n, true); });
 }
 
 template <typename T, int DS, int LW>
 int run(const Forms& f, const int32_t* inv, int64_t n_out, const float* x,
         int64_t n_x, float* y, int d, cudaStream_t st) {
-    static const int resident = resident_blocks<T, DS, LW>();
+    static const int resident = resident_blocks(
+        blockdense_matmat_kernel<T, DS, LW>, kThreads, kSmemBytes);
     if (resident <= 0) {
         const cudaError_t e = cudaGetLastError();
         return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidValue);
@@ -616,20 +331,10 @@ int launch(const void* const* m, const void* const* win_start,
            const int* caps, const int* starts, int n_buckets,
            const int32_t* inv, int64_t n_out, const float* x, int64_t n_x,
            float* y, int d, void* stream) {
-    if (n_buckets <= 0 || n_buckets > kMaxBuckets || n_out <= 0 || d <= 0
-            || n_x < 0 || n_x > INT32_MAX || n_out > INT32_MAX)
-        return static_cast<int>(cudaErrorInvalidValue);
     Forms f;
-    for (int k = 0; k < kMaxBuckets; ++k) {
-        const int j = k < n_buckets ? k : n_buckets - 1;
-        if (caps[j] <= 0 || starts[j] < 0 || (j > 0 && starts[j] < starts[j - 1]))
-            return static_cast<int>(cudaErrorInvalidValue);
-        f.m[k] = m[j];
-        f.win_start[k] = static_cast<const int32_t*>(win_start[j]);
-        f.cap[k] = caps[j];
-        f.start[k] = starts[j];
-    }
-    f.n_buckets = n_buckets;
+    if (!make_forms(m, win_start, caps, starts, n_buckets, f) || n_out <= 0
+            || d <= 0 || n_x < 0 || n_x > INT32_MAX || n_out > INT32_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define B1_RUN(DS, LW) run<T, DS, LW>(f, inv, n_out, x, n_x, y, d, st)
     if (d <= 4) return B1_RUN(4, 1);

@@ -1,21 +1,27 @@
 """The block-window SpMV kernels: K1 (``csrc/blockdense_matvec.cu``) for
 one right-hand side and B1 (``csrc/blockdense_matmat.cu``) for D of them
-at once; each with its wrapper, its plain torch twin and the dispatch
-between them.
+at once; each with its wrappers, its plain torch twins and the dispatch
+between them.  Both take all buckets of an 8-row slab form in one launch
+and write y in row order, streaming m once through the shared ring of
+``csrc/block_ring.cuh``.
 
-The kernel replaces the TPU kernel ``_matvec_kernel`` of
-``gravomg_tpu/ops/pallas_blockdense.py``.  It computes, for an aligned
-BlockDenseOperator (window starts multiples of 128, windows 128 wide),
+K1 replaces the TPU kernel ``_matvec_kernel`` of
+``gravomg_tpu/ops/pallas_blockdense.py``, which the JAX package's
+``slab_matvec`` launches once per bucket.  For an 8-row slab form and x
+(n_cols,) one launch computes
 
-    y[b*BLK + r] = sum_l m[b, r, l] * xpad[window column of l]
+    y[o*8 + r] = sum_l m[c, r, l] * x[window column of l]
+                 + diag[o*8 + r] * x[o*8 + r]
 
-in f32, with m in f32 or bf16 (upcast exactly) and x in f32, never
-rounded to m's dtype.  The escape chute and the diagonal are added here
-in torch, as the TPU kernel's caller does.
-
-:func:`blockdense_matvec_fast` dispatches on the device of x: a CUDA
-tensor goes to :func:`blockdense_matvec_cuda`, which launches the kernel
-or raises; a CPU tensor goes to :func:`blockdense_matvec_plain`.
+for output block o in row order and c = inv_block_perm[o] its block in
+the buckets laid end to end, in f32, with m in f32 or bf16 (upcast
+exactly) and x in f32, never rounded to m's dtype; the form's diagonal is
+fused into the store, the escape chute added here in torch
+(:func:`slab_matvec_cuda`, its twin :func:`slab_matvec_plain`, the
+dispatch :func:`slab_matvec_1d_fast`).  :func:`blockdense_matvec_cuda`
+runs the same kernel over one bucket, with :func:`blockdense_matvec_plain`
+its twin and :func:`blockdense_matvec_fast` the dispatch; its
+``launches`` counts every launch of K1.
 
 B1 replaces the same TPU kernel as the JAX package runs it under
 ``jax.vmap`` over the columns of X (the c5 recipe of
@@ -33,7 +39,8 @@ the same kernel over one bucket.  Skipping a zero position is exact for
 finite X: where X holds an Inf or a NaN at a position whose 8 entries of
 m are all zero, the twin gives NaN (0 * Inf) and the kernel does not.
 
-The shared libraries are built with ``nvcc`` at first use from the
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the
+twin.  The shared libraries are built with ``nvcc`` at first use from the
 sources in the package into ``gravomg_tpu_torch/_build/`` and bound with
 ctypes (plain C interface, no PyTorch headers).
 """
@@ -43,7 +50,6 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
@@ -51,19 +57,22 @@ from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               padded_length, slab_escape)
 from gravomg_tpu_torch.utils.build import CudaLibrary
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# The buckets of one launch (base pointers, window starts, caps, first
+# blocks, count), inv_block_perm, n_out, x's entries and their count.
+_BUCKET_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+_ARGS = _BUCKET_ARGS + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                        ctypes.c_void_p]        # diag, n_diag, y, stream
 LIBRARY = CudaLibrary("blockdense_matvec.cu",
                       {"gmg_blockdense_matvec_f32": _ARGS,
                        "gmg_blockdense_matvec_bf16": _ARGS})
-_MM_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p]
+_MM_ARGS = _BUCKET_ARGS + [ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p]     # y, D, stream
 MATMAT_LIBRARY = CudaLibrary("blockdense_matmat.cu",
                              {"gmg_blockdense_matmat_f32": _MM_ARGS,
                               "gmg_blockdense_matmat_bf16": _MM_ARGS})
-MAX_BUCKETS = 12            # buckets one launch of B1 takes
+MAX_BUCKETS = 12            # buckets one launch of K1 or B1 takes
 # Window entries (blocks x NWW x D) the twin gathers at a time.
 _TWIN_CHUNK = 1 << 28
 
@@ -73,6 +82,83 @@ def _check_aligned_op(op: BlockDenseOperator) -> None:
         raise ValueError("the block-window kernel needs 128-wide windows "
                          "with 128-aligned starts (build with align=128, "
                          "window=window0=128)")
+
+
+def _check_slab(op) -> None:
+    if op.mxu or op.block != 8:
+        raise ValueError("K1 and B1 take the 8-row slab form, not the "
+                         "transposed-tile (mxu) one")
+
+
+def _launch_buckets(buckets: Sequence[BlockDenseOperator],
+                    inv: Optional[torch.Tensor], n_out: int,
+                    x: torch.Tensor, name: str):
+    """Checks the buckets of one launch of K1 or B1 (``name``) against x
+    (n_cols, ...) and ``inv`` (int32 (n_out,), or None for one bucket);
+    returns m's dtype and the arguments the C functions take for them,
+    up to x's entries.  One pass over the buckets: it runs before every
+    launch, on the host, ahead of the kernel."""
+    dev = x.device
+    dtype = buckets[0].m.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"m must be float32 or bfloat16, got {dtype}")
+    nb = len(buckets)
+    if not 0 < nb <= MAX_BUCKETS:
+        raise ValueError(f"{name} takes 1 to {MAX_BUCKETS} buckets, got {nb}")
+    ms, wss, caps, firsts = [], [], [], []
+    first = 0
+    for b in buckets:
+        _check_aligned_op(b)
+        m, ws = b.m, b.win_start
+        if m.dim() != 3:
+            raise ValueError(f"{name} takes 8-row blocks: m={tuple(m.shape)}")
+        nblk, blk, nww = m.shape
+        if m.dtype != dtype:
+            raise ValueError("the buckets' m must share one dtype")
+        if ws.dtype != torch.int32 or ws.shape != (nblk, nww // 128):
+            raise ValueError("win_start must be int32 (NBLK, NW)")
+        if nww % 128 or blk != 8 or x.shape[0] != b.n_cols:
+            raise ValueError(f"{name} takes 8-row blocks: m={tuple(m.shape)} "
+                             f"x={tuple(x.shape)} n_cols={b.n_cols}")
+        if not (m.is_contiguous() and ws.is_contiguous()):
+            raise ValueError("m and win_start must be contiguous")
+        ptr = m.data_ptr()
+        if ptr % 16 or m.device != dev or ws.device != dev:
+            raise ValueError("m must be 16-byte aligned, on x's device")
+        ms.append(ptr)
+        wss.append(ws.data_ptr())
+        caps.append(nww // 128)
+        firsts.append(first)
+        first += nblk
+    if inv is not None and not (inv.dtype == torch.int32 and inv.dim() == 1
+                                and inv.shape[0] == n_out
+                                and inv.is_contiguous() and inv.device == dev):
+        raise ValueError("inv_block_perm must be int32 (n_out,), "
+                         "contiguous, on x's device")
+    return dtype, ((ctypes.c_void_p * nb)(*ms), (ctypes.c_void_p * nb)(*wss),
+                   (ctypes.c_int * nb)(*caps), (ctypes.c_int * nb)(*firsts),
+                   nb, None if inv is None else inv.data_ptr(), n_out)
+
+
+def _row_order(op, xp: torch.Tensor, windows) -> torch.Tensor:
+    """(n_out, 8, ...) window products of an 8-row slab form in row
+    order: each output block takes its block's products from its bucket
+    (``windows(bucket, xp)``), as one launch of K1 or B1 does; padding
+    blocks are not computed."""
+    inv = op.inv_block_perm.long()
+    y, first = None, 0
+    for b in op.buckets:
+        _check_aligned_op(b)
+        nblk = b.m.shape[0]
+        out = torch.nonzero((inv >= first) & (inv < first + nblk))[:, 0]
+        blocks = inv[out] - first
+        yb = windows(b._replace(m=b.m[blocks], win_start=b.win_start[blocks]),
+                     xp)
+        if y is None:
+            y = yb.new_empty((inv.shape[0],) + tuple(yb.shape[1:]))
+        y[out] = yb
+        first += nblk
+    return y
 
 
 def _windows_plain(op: BlockDenseOperator,
@@ -85,10 +171,57 @@ def _windows_plain(op: BlockDenseOperator,
     return torch.sum(op.m.to(acc) * wins, dim=2)
 
 
+def _matvec_launch(buckets: Sequence[BlockDenseOperator],
+                   inv: Optional[torch.Tensor], n_out: int,
+                   x: torch.Tensor, xs: torch.Tensor,
+                   diag: Optional[torch.Tensor]) -> torch.Tensor:
+    """(n_out*8,) f32 from one launch of K1 over ``buckets``: output
+    block o from block ``inv[o]`` of the buckets laid end to end, or from
+    block o of the one bucket where ``inv`` is None; rows below len(diag)
+    plus diag * x.  The kernel reads x's entries from ``xs`` (x itself,
+    or x as :func:`pad_x` pads it) and takes entries from n_cols on as
+    zero.  Raises on anything it does not take; launches on the current
+    stream and counts the launch in ``blockdense_matvec_cuda.launches``."""
+    dev = x.device
+    if not x.is_cuda:
+        raise ValueError("K1 needs CUDA tensors")
+    if x.dtype != torch.float32 or x.ndim != 1:
+        raise ValueError(f"x must be 1-D float32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    dtype, args = _launch_buckets(buckets, inv, n_out, x, "K1")
+    if not (xs.dtype == torch.float32 and xs.ndim == 1
+            and xs.shape[0] >= x.shape[0] and xs.is_contiguous()
+            and xs.data_ptr() % 16 == 0 and xs.device == dev):
+        raise ValueError("x's entries must be 1-D float32, contiguous, "
+                         "16-byte aligned, on x's device")
+    n_diag = 0
+    if diag is not None:
+        n_diag = diag.shape[0]
+        if not (diag.dtype == torch.float32 and diag.ndim == 1
+                and diag.is_contiguous() and diag.device == dev
+                and n_diag <= min(8 * n_out, x.shape[0])):
+            raise ValueError("the diagonal must be 1-D float32, contiguous, "
+                             "on x's device, no longer than x or y")
+    lib = LIBRARY.load()
+    fn = (lib.gmg_blockdense_matvec_f32 if dtype == torch.float32
+          else lib.gmg_blockdense_matvec_bf16)
+    y = torch.empty((n_out * 8,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, xs.data_ptr(), x.shape[0],
+                 None if diag is None else diag.data_ptr(), n_diag,
+                 y.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"blockdense_matvec kernel launch failed: "
+                           f"cudaError {err}")
+    blockdense_matvec_cuda.launches += 1
+    return y
+
+
 def blockdense_matvec_plain(op: BlockDenseOperator, x: torch.Tensor,
                             xp: torch.Tensor) -> torch.Tensor:
-    """Plain torch twin of the kernel, plus escape chute and diagonal.
-    ``xp`` is x as :func:`pad_x` pads it."""
+    """Plain torch twin of K1 on one bucket, plus escape chute and
+    diagonal.  ``xp`` is x as :func:`pad_x` pads it."""
     _check_aligned_op(op)
     y = _windows_plain(op, xp).reshape(-1)[:op.n_rows].to(x.dtype)
     y = add_escape(op, y, x)
@@ -99,49 +232,21 @@ def blockdense_matvec_plain(op: BlockDenseOperator, x: torch.Tensor,
 
 def blockdense_matvec_cuda(op: BlockDenseOperator, x: torch.Tensor,
                            xp: torch.Tensor) -> torch.Tensor:
-    """The kernel on the card, plus escape chute and diagonal.
+    """K1 on the card over one bucket, plus escape chute and diagonal.
 
-    ``xp`` is x as :func:`pad_x` pads it; the buckets of one slab
-    operator share one padded copy.  Raises on anything the kernel does
-    not take; launches on the current stream and counts each launch in
-    ``blockdense_matvec_cuda.launches``.
+    ``xp`` is x as :func:`pad_x` pads it.  Raises on anything the kernel
+    does not take; launches on the current stream.
+    ``blockdense_matvec_cuda.launches`` counts every launch of K1,
+    through this wrapper or through :func:`slab_matvec_cuda`.
     """
-    _check_aligned_op(op)
-    m, ws = op.m, op.win_start
-    nblk, blk, nww = m.shape
-    if not (x.is_cuda and m.is_cuda and ws.is_cuda):
+    if not x.is_cuda:
         raise ValueError("blockdense_matvec_cuda needs CUDA tensors")
-    if x.dtype != torch.float32 or x.ndim != 1:
-        raise ValueError(f"x must be 1-D float32, got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    if m.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"m must be float32 or bfloat16, got {m.dtype}")
-    if ws.dtype != torch.int32 or tuple(ws.shape) != (nblk, nww // 128):
-        raise ValueError("win_start must be int32 (NBLK, NW)")
-    if nww % 128 or not 0 < blk <= 32 or x.shape[0] != op.n_cols:
-        raise ValueError(f"unsupported shape m={tuple(m.shape)} "
-                         f"x={tuple(x.shape)} n_cols={op.n_cols}")
-    if not (m.is_contiguous() and ws.is_contiguous()):
-        raise ValueError("m and win_start must be contiguous")
-    if m.data_ptr() % 16 or m.device != x.device or ws.device != x.device:
-        raise ValueError("m must be 16-byte aligned, on x's device")
     if not (xp.dtype == torch.float32 and xp.ndim == 1
             and xp.is_contiguous() and xp.device == x.device
             and xp.shape[0] >= padded_length(op, op.n_cols)):
         raise ValueError("xp must be x zero-padded by pad_x (1-D float32, "
                          "contiguous, on x's device)")
-    lib = LIBRARY.load()
-    fn = (lib.gmg_blockdense_matvec_f32 if m.dtype == torch.float32
-          else lib.gmg_blockdense_matvec_bf16)
-    y = torch.empty((nblk * blk,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(m.data_ptr(), ws.data_ptr(), xp.data_ptr(), y.data_ptr(),
-                 nblk, blk, nww // 128, stream)
-    if err != 0:
-        raise RuntimeError(f"blockdense_matvec kernel launch failed: "
-                           f"cudaError {err}")
-    blockdense_matvec_cuda.launches += 1
+    y = _matvec_launch((op,), None, op.m.shape[0], x, xp, None)
     y = add_escape(op, y[:op.n_rows], x)
     if op.diag is not None:
         y = y + op.diag * x
@@ -153,10 +258,49 @@ blockdense_matvec_cuda.launches = 0
 
 def blockdense_matvec_fast(op: BlockDenseOperator, x: torch.Tensor,
                            xp: torch.Tensor) -> torch.Tensor:
-    """The kernel for a CUDA x, its plain twin for a CPU x."""
+    """K1 over one bucket for a CUDA x, its plain twin for a CPU x."""
     if x.is_cuda:
         return blockdense_matvec_cuda(op, x, xp)
     return blockdense_matvec_plain(op, x, xp)
+
+
+def slab_matvec_plain(op, x: torch.Tensor) -> torch.Tensor:
+    """Plain torch twin of one launch of K1 over all buckets of an 8-row
+    ``SlabOperator`` and x (n_cols,): each output block, in row order,
+    takes its block's products from its bucket (padding blocks are not
+    computed), then the diagonal, then the escape chutes.  (n_rows,)."""
+    _check_slab(op)
+    y = _row_order(op, pad_x(op.buckets[0], x), _windows_plain)
+    y = y.reshape(-1).to(x.dtype)
+    if op.diag is not None:
+        y[:op.n_rows] += op.diag * x
+    return slab_escape(op, y, x)[:op.n_rows]
+
+
+def slab_matvec_cuda(op, x: torch.Tensor) -> torch.Tensor:
+    """One launch of K1 over all buckets of an 8-row ``SlabOperator`` and
+    x (n_cols,) float32, writing y in row order with the diagonal fused;
+    plus the escape chutes: (n_rows,).  The kernel reads x unpadded (a
+    copy only where x is not contiguous and 16-byte aligned).  Raises on
+    anything the kernel does not take."""
+    _check_slab(op)
+    xs = x.contiguous()
+    if xs.data_ptr() % 16:
+        xs = xs.clone()
+    if op.diag is not None and not (op.diag.shape[0] == op.n_rows
+                                    == x.shape[0]):
+        raise ValueError("a slab form's diagonal needs a square form "
+                         f"({op.n_rows} rows, x {tuple(x.shape)})")
+    inv = op.inv_block_perm
+    y = _matvec_launch(op.buckets, inv, inv.shape[0], x, xs, op.diag)
+    return slab_escape(op, y, x)[:op.n_rows]
+
+
+def slab_matvec_1d_fast(op, x: torch.Tensor) -> torch.Tensor:
+    """K1 in one launch for a CUDA x, its plain twin for a CPU x."""
+    if x.is_cuda:
+        return slab_matvec_cuda(op, x)
+    return slab_matvec_plain(op, x)
 
 
 def _windows_matmat_plain(op: BlockDenseOperator,
@@ -210,34 +354,7 @@ def _matmat_launch(buckets: Sequence[BlockDenseOperator],
         raise ValueError(f"x must be 2-D float32 (n_cols, D), got "
                          f"{x.dtype} {tuple(x.shape)}")
     d = x.shape[1]
-    dtype = buckets[0].m.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"m must be float32 or bfloat16, got {dtype}")
-    if not 0 < len(buckets) <= MAX_BUCKETS:
-        raise ValueError(f"B1 takes 1 to {MAX_BUCKETS} buckets, got "
-                         f"{len(buckets)}")
-    for b in buckets:
-        _check_aligned_op(b)
-        m, ws = b.m, b.win_start
-        if m.ndim != 3:
-            raise ValueError(f"B1 takes 8-row blocks: m={tuple(m.shape)}")
-        nblk, blk, nww = m.shape
-        if m.dtype != dtype:
-            raise ValueError("the buckets' m must share one dtype")
-        if ws.dtype != torch.int32 or tuple(ws.shape) != (nblk, nww // 128):
-            raise ValueError("win_start must be int32 (NBLK, NW)")
-        if nww % 128 or blk != 8 or x.shape[0] != b.n_cols:
-            raise ValueError(f"B1 takes 8-row blocks: m={tuple(m.shape)} "
-                             f"x={tuple(x.shape)} n_cols={b.n_cols}")
-        if not (m.is_contiguous() and ws.is_contiguous()):
-            raise ValueError("m and win_start must be contiguous")
-        if m.data_ptr() % 16 or m.device != dev or ws.device != dev:
-            raise ValueError("m must be 16-byte aligned, on x's device")
-    if inv is not None and not (inv.dtype == torch.int32 and inv.ndim == 1
-                                and inv.shape[0] == n_out
-                                and inv.is_contiguous() and inv.device == dev):
-        raise ValueError("inv_block_perm must be int32 (n_out,), "
-                         "contiguous, on x's device")
+    dtype, args = _launch_buckets(buckets, inv, n_out, x, "B1")
     if not (xs.dtype == torch.float32 and xs.ndim == 2
             and xs.shape[1] == d and xs.shape[0] >= x.shape[0]
             and xs.is_contiguous() and xs.data_ptr() % 16 == 0
@@ -247,18 +364,10 @@ def _matmat_launch(buckets: Sequence[BlockDenseOperator],
     lib = MATMAT_LIBRARY.load()
     fn = (lib.gmg_blockdense_matmat_f32 if dtype == torch.float32
           else lib.gmg_blockdense_matmat_bf16)
-    nb = len(buckets)
-    starts = np.cumsum([0] + [b.m.shape[0] for b in buckets[:-1]])
-    ms = (ctypes.c_void_p * nb)(*(b.m.data_ptr() for b in buckets))
-    wss = (ctypes.c_void_p * nb)(*(b.win_start.data_ptr() for b in buckets))
-    caps = (ctypes.c_int * nb)(*(b.m.shape[2] // 128 for b in buckets))
-    firsts = (ctypes.c_int * nb)(*(int(v) for v in starts))
     y = torch.empty((n_out * 8, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ms, wss, caps, firsts, nb,
-                 None if inv is None else inv.data_ptr(), n_out,
-                 xs.data_ptr(), x.shape[0], y.data_ptr(), d, stream)
+        err = fn(*args, xs.data_ptr(), x.shape[0], y.data_ptr(), d, stream)
     if err != 0:
         raise RuntimeError(f"blockdense_matmat kernel launch failed: "
                            f"cudaError {err}")
@@ -291,33 +400,14 @@ def blockdense_matmat_cuda(op: BlockDenseOperator, x: torch.Tensor,
 blockdense_matmat_cuda.launches = 0
 
 
-def _check_slab(op) -> None:
-    if op.mxu or op.block != 8:
-        raise ValueError("B1 takes the 8-row slab form, not the "
-                         "transposed-tile (mxu) one")
-
-
 def slab_matmat_plain(op, x: torch.Tensor) -> torch.Tensor:
     """Plain torch twin of one launch of B1 over all buckets of an 8-row
     ``SlabOperator``: each output block, in row order, takes its block's
     products from its bucket (padding blocks are not computed); plus the
     escape chutes.  (n_rows, D) without the diagonal."""
     _check_slab(op)
-    xp = pad_x(op.buckets[0], x)
-    inv = op.inv_block_perm.long()
-    d = x.shape[1]
-    acc = torch.promote_types(op.buckets[0].m.dtype, torch.float32)
-    y = torch.empty((inv.shape[0], 8, d), dtype=acc, device=x.device)
-    first = 0
-    for b in op.buckets:
-        _check_aligned_op(b)
-        nblk = b.m.shape[0]
-        out = torch.nonzero((inv >= first) & (inv < first + nblk))[:, 0]
-        blocks = inv[out] - first
-        y[out] = _windows_matmat_plain(
-            b._replace(m=b.m[blocks], win_start=b.win_start[blocks]), xp)
-        first += nblk
-    y = slab_escape(op, y.reshape(-1, d).to(x.dtype), x)
+    y = _row_order(op, pad_x(op.buckets[0], x), _windows_matmat_plain)
+    y = slab_escape(op, y.reshape(-1, x.shape[1]).to(x.dtype), x)
     return y[:op.n_rows]
 
 

@@ -5,10 +5,12 @@ needs.
 Row blocks are partitioned into buckets by their greedy first-fit
 window count, permuted so each bucket is contiguous, and each bucket is
 one aligned BlockDenseOperator whose window count is the bucket cap.
-The matvec runs the block-window kernel once per bucket and un-permutes
-the output at block granularity; for a (n_cols, D) x the batched kernel
-B1, and a transposed-tile form, take one launch for all buckets, which
-writes y in row order.  Each bucket's block count is
+The matvec takes one launch of a kernel for all buckets, which writes y
+in row order through ``inv_block_perm``: the block-window kernel K1 for
+a (n_cols,) x, the batched kernel B1 for a (n_cols, D) x, the
+transposed-tile kernel for that form (the JAX package runs its kernel
+once per bucket and un-permutes the output at block granularity, the
+same function).  Each bucket's block count is
 padded to a multiple of 8 (32 above 32 blocks) as in the JAX package, so
 the converted arrays, ``inv_block_perm`` included, equal the JAX
 package's.
@@ -28,10 +30,10 @@ import numpy as np
 import torch
 
 from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
-                                              blockdense_from_ell, pad_x,
+                                              blockdense_from_ell,
                                               trim_escape)
-from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matvec_fast,
-                                                   slab_matmat_fast)
+from gravomg_tpu_torch.ops.blockdense_cuda import (slab_matmat_fast,
+                                                   slab_matvec_1d_fast)
 from gravomg_tpu_torch.ops.mxu_cuda import (MxuPlan, mxu_plan,
                                             mxu_slab_matvec_fast)
 
@@ -188,14 +190,12 @@ def slab_from_ell(cols: torch.Tensor, vals: torch.Tensor,
 def slab_matvec(op: SlabOperator, x: torch.Tensor) -> torch.Tensor:
     """y = A x for x (n_cols,) or, on the 8-row form, (n_cols, D).
 
-    An ``mxu`` form takes one launch of the transposed-tile kernel over
-    all its buckets, which writes y in row order; an 8-row form with a
-    2-D x one launch of the batched kernel B1 over all its buckets, also
-    in row order; an 8-row form with a 1-D x the block-window kernel per
-    bucket and a block-level un-permutation, x zero-padded once for all
-    buckets (they share n_cols and the window width); on the CPU their
-    plain twins.  An ``mxu`` form refuses a 2-D x: the cycle sends it the
-    ELL gather."""
+    Each takes one launch of a kernel over all buckets of the form, which
+    writes y in row order: an ``mxu`` form the transposed-tile kernel; an
+    8-row form with a 1-D x the block-window kernel K1, the diagonal
+    fused into its store; an 8-row form with a 2-D x the batched kernel
+    B1; on the CPU their plain twins.  An ``mxu`` form refuses a 2-D x:
+    the cycle sends it the ELL gather."""
     if op.mxu:
         if x.ndim != 1:
             raise ValueError("the transposed-tile (mxu) slab form takes a "
@@ -204,11 +204,7 @@ def slab_matvec(op: SlabOperator, x: torch.Tensor) -> torch.Tensor:
     elif x.ndim == 2:
         y = slab_matmat_fast(op, x)
     else:
-        xp = pad_x(op.buckets[0], x)
-        parts = [blockdense_matvec_fast(b, x, xp).reshape(-1, op.block)
-                 for b in op.buckets]
-        ycat = torch.cat(parts, dim=0)           # (NBLK_padded, BLK)
-        y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
+        return slab_matvec_1d_fast(op, x)
     if op.diag is not None:
         y = y + (op.diag if x.ndim == 1 else op.diag[:, None]) * x
     return y

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import statistics
 
+import numpy as np
 import torch
 
 from gravomg_tpu_torch.ops.blockdense import pad_x, padded_length
@@ -108,9 +109,10 @@ def matvec_bound(buckets, x, plan=None):
 
     Without ``plan`` (the block-window kernels): m, win_start and the
     padded x read once, y written once (every block of every bucket).
-    For x (n_cols,) one multiply-add per entry of m (K1 reads them all,
-    and its bytes bound it).  For x (n_cols, D) (B1, which skips the
-    positions where all 8 rows of a block are zero) 8 * D multiply-adds
+    For x (n_cols,) one multiply-add per entry of m (the per-bucket
+    route; one launch of K1: :func:`slab_matvec_bound`).  For x (n_cols,
+    D) (B1, which skips the positions where all 8 rows of a block are
+    zero) 8 * D multiply-adds
     per (block, position) pair with a nonzero (:func:`nonzero_pairs`),
     counted on these buckets' own m: the work these inputs need.  With
     the transposed-tile kernel's work table ``plan``: what that table
@@ -134,6 +136,44 @@ def matvec_bound(buckets, x, plan=None):
     else:
         madds = 8 * d * nonzero_pairs(buckets)
     ms, by = bound(nbytes, 2 * madds)
+    return ms, by, nbytes
+
+
+def used_blocks(op) -> list:
+    """Per bucket of an 8-row slab form, the blocks its inv_block_perm
+    names: what one launch of K1 or B1 reads (a bucket's padding blocks
+    are not read)."""
+    inv = op.inv_block_perm.long()
+    ends = np.cumsum([b.m.shape[0] for b in op.buckets])
+    return [int(((inv >= hi - b.m.shape[0]) & (inv < hi)).sum())
+            for b, hi in zip(op.buckets, ends)]
+
+
+def slab_m_read(op) -> int:
+    """Bytes of m one launch of K1 or B1 reads on an 8-row slab form."""
+    return sum(u * b.m[0].numel() * b.m.element_size()
+               for u, b in zip(used_blocks(op), op.buckets))
+
+
+def slab_matvec_bound(op, x):
+    """Bound of one launch of K1 over the 8-row slab form ``op`` on x
+    (n_cols,): (ms, bound_by, bytes).  The launch reads m and win_start
+    of the blocks inv_block_perm names (:func:`used_blocks`),
+    inv_block_perm, x unpadded and the diagonal once, and writes y's
+    n_rows entries once; one multiply-add per entry of m it reads and per
+    row of the diagonal."""
+    used = used_blocks(op)
+    n_diag = 0 if op.diag is None else op.diag.shape[0]
+    nbytes = (slab_m_read(op)
+              + sum(u * b.win_start.shape[1] * b.win_start.element_size()
+                    for u, b in zip(used, op.buckets))
+              + op.inv_block_perm.numel() * op.inv_block_perm.element_size()
+              + x.shape[0] * x.element_size()
+              + (0 if op.diag is None
+                 else n_diag * op.diag.element_size())
+              + op.n_rows * x.element_size())
+    madds = sum(u * b.m[0].numel() for u, b in zip(used, op.buckets))
+    ms, by = bound(nbytes, 2 * (madds + n_diag))
     return ms, by, nbytes
 
 
