@@ -141,12 +141,28 @@ script exits nonzero:
      plan at nd = 8 on the greedy hierarchy (the C++ coarsener's, whose
      levels are those of HALO_1M.json): S and halo_frac of every level's
      A, U and U^T beside the recorded ones, host seconds.
+ 18. the port's driver surfaces (``gravomg_tpu_torch/entry.py`` and
+     ``bench.py``): (a) one ``entry()`` cycle on the card against
+     ``entry(device="cpu")``'s at 1e-5 * max|x|, its time (CUDA
+     events); (b) ``dryrun_multichip`` on one NCCL rank (device=None)
+     and on 4 gloo ranks sharing the card: the batched cycle, the
+     sharded ELL solve, the sharded uniform forms (each rank holding
+     its row blocks of m) and the halo solve on the 24k fixture, each
+     solve's iterations within 1 of the unsharded MG-PCG on its fixture,
+     rel and seconds per rank, fine halo_frac below 0.25; then
+     ``dryrun_multichip(2)`` with device=None on the one card, which must
+     raise the RuntimeError before any rank starts; (c) ``python -m
+     gravomg_tpu_torch.bench`` at 1M in a process of its own: its one
+     stdout line and its stderr account printed, MG-PCG and mg_solve
+     (bf16 FCG) within 1 iteration of phase 5's, K1's launches in one
+     cycle equal to its slab matvecs (its record in
+     chiprun_out/bench_1000000.json).
 
-Phases 3 (K1's check), 5, 6 and 13-17 are functions of (torch, device,
-n, ...) that also run on the CPU at a small n
+Phases 3 (K1's check), 5, 6, 13-17 and 18 (a) and (b) are functions of
+(torch, device, n, ...) that also run on the CPU at a small n
 (tests/test_torch_smoke_k1.py, tests/test_torch_smoke_phases.py,
-tests/test_torch_smoke_multidevice.py), but for 15 (b), which needs
-phase 3's hierarchy on the card.
+tests/test_torch_smoke_multidevice.py, tests/test_torch_smoke_entry.py),
+but for 15 (b), which needs phase 3's hierarchy on the card.
 
 A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
@@ -1964,6 +1980,170 @@ def phase_multidevice(torch, device, n, world_size, problem=None,
     return out
 
 
+def _unsharded_iters(torch, dev):
+    """MG-PCG iterations of the default config on the entry fixture (b
+    from seed 0) and the halo fixture (b from seed 1), unsharded on
+    ``dev``: what each dryrun path is held to."""
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch import entry as ge
+    cfg = gt.MultigridConfig()
+    out = {}
+    for key, path, seed in (("entry", ge.ENTRY_FIXTURE, 0),
+                            ("halo", ge.HALO_FIXTURE, 1)):
+        h = gt.load_solver(path, device=dev)
+        b = ge.normal_rhs(h.levels[0].op.num_vertices, seed, dev)
+        out[key] = gt.mg_pcg(h, b, cfg)[2]
+    return out
+
+
+def _check_dryrun(res, want, tag):
+    """Each dryrun solve to the tolerance within 1 iteration of the
+    unsharded MG-PCG on its fixture, the fine halo_frac below 0.25, the
+    batched output of 2n right-hand sides."""
+    for name, key in (("sharded", "entry"), ("fast", "entry"),
+                      ("halo", "halo")):
+        r = res[name]
+        if not (r["rel"] < 1e-8 and abs(r["iters"] - want[key]) <= 1):
+            raise AssertionError(f"{tag} {name}: {r} against {want[key]} "
+                                 f"unsharded iterations")
+    if not (res["halo"]["halo_frac"] < 0.25
+            and res["batched"]["shape"][0] == 2 * res["n_devices"]):
+        raise AssertionError(f"{tag}: {res}")
+    print(f"[18] (b) {tag}: " + "; ".join(
+        f"{name} {res[name]['iters']} iterations, rel "
+        f"{res[name]['rel']:.3e}, s per rank "
+        f"{[round(s, 3) for s in res['s_per_rank'][name]]}"
+        for name in ("sharded", "fast", "halo"))
+          + f"; batched {res['batched']['shape']} s per rank "
+          f"{[round(s, 3) for s in res['s_per_rank']['batched']]}; "
+          f"halo_frac {res['halo']['halo_frac']:.4f}; {res['wall_s']:.1f} s "
+          f"wall, spawn included (unsharded MG-PCG: {want})")
+
+
+def _bench_subprocess(torch, n, main):
+    """Phase 18 (c): ``python -m gravomg_tpu_torch.bench --n n`` in a
+    process of its own; its one stdout line and stderr account, held to
+    phase 5's iteration counts (``main``) and its own K1 count."""
+    path = os.path.join(ROOT, "chiprun_out", f"bench_{n}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gravomg_tpu_torch.bench", "--n", str(n),
+         "--out", path], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    line = json.loads(lines[0]) if len(lines) == 1 else None
+    account = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+    print(f"[18] (c) bench stdout: {proc.stdout.strip()}")
+    for ln in account:
+        print(f"[18] (c) bench stderr: {ln}")
+    if line is None or set(line) != {"metric", "value", "unit",
+                                     "vs_baseline"}:
+        raise AssertionError(f"the bench printed {len(lines)} lines on "
+                             f"stdout: {proc.stdout[:2000]}")
+    with open(path) as f:
+        rec = json.load(f)
+    cyc = rec["cycle"]
+    print(f"[18] (c) bench at n={n}: {wall:.1f} s in all; V-cycle "
+          f"{rec['vcycle_ms']:.4f} ms (slope, r2 {rec['slope_r2']:.6f}), "
+          f"median single cycle {rec['single_cycle_ms']:.4f} ms, SciPy "
+          f"cycle {rec['cpu_vcycle_ms']:.1f} ms; mg_pcg "
+          f"{rec['mg_pcg']['iters']} it, {rec['mg_pcg']['s']:.4f} s; "
+          f"mg_solve ({rec['mg_solve']['path']}) {rec['mg_solve']['iters']} "
+          f"it, {rec['mg_solve']['s']:.4f} s (phase 5: "
+          f"{main['mg_pcg']['iters']} and {main['mg_solve']['iters']}); K1 "
+          f"{cyc['k1_launches']} launches for {cyc['slab_matvecs']} slab "
+          f"matvecs in one cycle")
+    if not (line["metric"] == f"vcycle_ms_{n}v" and line["value"] > 0
+            and line["vs_baseline"] > 0
+            and abs(rec["mg_pcg"]["iters"] - main["mg_pcg"]["iters"]) <= 1
+            and abs(rec["mg_solve"]["iters"] - main["mg_solve"]["iters"])
+            <= 1 and cyc["k1_launches"] == cyc["slab_matvecs"] > 0):
+        raise AssertionError(f"bench: {line}, record {path}")
+    return {"line": line, "account": account, "wall_s": wall,
+            "record": os.path.relpath(path, ROOT)}
+
+
+def phase_entry(torch, device):
+    """Phase 18 (a): one cycle of ``entry(device)`` against
+    ``entry(device="cpu")``'s at 1e-5 of its largest entry, timed on the
+    card (CUDA events, median of 10)."""
+    from gravomg_tpu_torch.entry import entry, entry_residual
+    dev = torch.device(device)
+    fn, args = entry(device=dev)
+    y = fn(*args).cpu()
+    fn_c, args_c = entry(device="cpu")
+    y_c = fn_c(*args_c)
+    err = float((y - y_c).abs().max() / y_c.abs().max())
+    out = {"rel_to_cpu": err, "ms": _timed(torch, dev, lambda: fn(*args)),
+           "residual": entry_residual(fn, args)}
+    print(f"[18] (a) entry(): one V-cycle on {y.shape[0]} rows on {dev}, "
+          f"relative residual {out['residual']:.3e}, against the CPU cycle "
+          f"max|d|/max|x| {err:.3e}; {_fmt(out['ms'], 4)} ms (median of "
+          f"10, CUDA events)")
+    if not (err <= 1e-5 and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"entry cycle: {out}")
+    return out
+
+
+def phase_dryrun(torch, device):
+    """Phase 18 (b): ``dryrun_multichip`` on the card as one NCCL rank
+    (``device=None``) and as 4 gloo ranks sharing the card, on the CPU as
+    2 gloo ranks, each path within 1 iteration of the unsharded MG-PCG on
+    its fixture; then, with ``device=None`` and one rank more than there
+    are cards, the RuntimeError, raised before any rank starts."""
+    from gravomg_tpu_torch.entry import dryrun_multichip
+    dev = torch.device(device)
+    want = _unsharded_iters(torch, dev)
+    runs = ((("one NCCL rank on the card", 1, {}),
+             ("4 gloo ranks sharing the card", 4,
+              {"device": "cuda", "backend": "gloo"}))
+            if dev.type == "cuda" else
+            (("2 gloo ranks on the CPU", 2, {"device": "cpu"}),))
+    out = {"unsharded_iters": want, "runs": {}}
+    for tag, nd, kw in runs:
+        res = dryrun_multichip(nd, **kw)
+        _check_dryrun(res, want, tag)
+        out["runs"][tag] = res
+    n_over = torch.cuda.device_count() + 1
+    t0 = time.perf_counter()
+    try:
+        dryrun_multichip(n_over)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"dryrun_multichip({n_over}) ran on "
+                             f"{n_over - 1} cards")
+    refused_s = time.perf_counter() - t0
+    print(f"[18] (b) dryrun_multichip({n_over}) with device=None raised in "
+          f"{refused_s:.4f} s: {msg}")
+    if not ('device="cpu"' in msg and 'backend="gloo"' in msg
+            and refused_s < 1.0):
+        raise AssertionError(f"the refusal: {msg} after {refused_s} s")
+    out["refused"] = {"n": n_over, "message": msg, "s": refused_s}
+    return out
+
+
+def phase_drivers(torch, device, n, main):
+    """Phase 18 on ``device``: (a) :func:`phase_entry`, (b)
+    :func:`phase_dryrun`, (c) the bench at ``n`` points in a process of
+    its own, held to phase 5's iteration counts ``main``."""
+    t0 = time.perf_counter()
+    out = {"entry": phase_entry(torch, device),
+           "dryrun": phase_dryrun(torch, device),
+           "bench": _bench_subprocess(torch, n, main)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[18] phase {out['phase_s']:.1f} s")
+    return out
+
+
 def _share_rows(obj, path=""):
     """(path, row) for every timed row of the report: a dict with a
     share of its bound and the bytes that bound counts."""
@@ -2072,6 +2252,7 @@ def main() -> int:
         shutil.rmtree(md_dir, ignore_errors=True)
     del md_problem
     torch.cuda.empty_cache()
+    report["drivers"] = phase_drivers(torch, "cuda", N, report["main"])
     # The CPU copy's solves come last: after half a minute of them
     # torch.profiler reports no device kernel any more in this process,
     # and the timing phases read the kernels' own times from it.

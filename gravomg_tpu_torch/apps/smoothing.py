@@ -26,8 +26,10 @@ def implicit_smooth(graph: Graph, h: Union[Hierarchy, SolverHierarchy],
                     record: Optional[dict] = None) -> torch.Tensor:
     """Vertex positions after ``steps`` implicit steps, t = ``t_factor``
     times the squared mean edge length.  Each step is one stationary
-    :func:`solve` on the ELL path (a 2-D right-hand side never takes a
-    slab form).  ``record`` (a dict) receives the refit's seconds and,
+    :func:`solve` with a (V, 3) right-hand side: U and U^T take the
+    batched kernel B1 on every 8-row slab form the refit keeps, and A
+    runs on the ELL gather (the refit drops its forms, as its values
+    change).  ``record`` (a dict) receives the refit's seconds and,
     per step, the solve's seconds, cycles and relative residual."""
     lap, mass = graph_laplacian(graph, "invdist")
     t = t_factor * mean_edge_length(graph) ** 2

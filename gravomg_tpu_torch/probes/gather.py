@@ -16,9 +16,9 @@ For each probe: the kernel against its twin (max|d| <= 1e-6 * max|y|,
 the two sum the 32 products in another order) and against itself (two
 runs on one input must agree bitwise), the kernel's and the twin's time
 per wrapper call (CUDA events, median of 10), the kernel alone as
-torch.profiler sees it, the kernel's rate in GB/s of lidx and w, and
-its bound: the bytes of x, starts, lidx and w read once and y written
-once, over the H100's published 3.35 TB/s (its 2 operations per entry
+torch.profiler sees it (median of 5 traced calls, L2 flushed before
+each), the kernel's rate in GB/s of lidx and w, and its bound: the
+bytes of x, starts, lidx and w read once and y written once, over the H100's published 3.35 TB/s (its 2 operations per entry
 over the published 67 TFLOP/s of f32 take less).  No single PyTorch call
 computes the function (the twin is a gather, a product and a sum), so
 there is no library time beside it.  Needs a CUDA device; exits 2
@@ -104,9 +104,11 @@ def measure(v: int):
         k2 = cuda_ms(lambda: window_gather_cuda(x, st, lidx, w, WD))
         p2 = cuda_ms(lambda: window_gather_plain(x, st, lidx, w, WD))
         k_ms = min(k1, k2)
-        # The kernel alone, without the wrapper's host time.
+        # The kernel alone, without the wrapper's host time; L2 flushed
+        # before each call (at 200k, lidx and w are about L2's size).
         alone_ms = kernel_ms(
-            lambda: window_gather_cuda(x, st, lidx, w, WD), "window_gather")
+            lambda: window_gather_cuda(x, st, lidx, w, WD), "window_gather",
+            cold=True)
         res[name] = {"V": v, "max_abs_err": err,
                      "rel_err": rel, "ms": k_ms, "plain_ms": min(p1, p2),
                      "kernel_ms": [k1, k2], "plain_ms_runs": [p1, p2],

@@ -81,12 +81,34 @@ def kernel_events(fn, match: str = "", cold: bool = False):
     return []
 
 
-def kernel_ms(fn, match: str):
-    """Milliseconds of the device kernels whose name contains ``match``
-    in one call of ``fn``; None if the profiler saw none (a time that
-    was not measured is not a zero)."""
-    evts = kernel_events(fn, match)
-    return sum(us for _, us in evts) / 1e3 if evts else None
+def kernel_ms(fn, match: str, reps: int = 5, cold: bool = False):
+    """Median milliseconds, over ``reps`` calls of ``fn`` traced in one
+    profiler session, of the device kernels whose name contains
+    ``match`` in a call; None if the profiler saw none, or not the same
+    number in every call, in two tries (a time that was not measured is
+    not a zero).  One traced call is not enough: now and then the
+    profiler reports a kernel's time range far off its true length.
+    With ``cold``, L2 is flushed before each traced call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    flush_l2()
+                fn()
+                torch.cuda.synchronize()
+        evts = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and match in e.name),
+                      key=lambda e: e.time_range.start)
+        if evts and len(evts) % reps == 0:
+            per = len(evts) // reps
+            return statistics.median(
+                sum(e.time_range.elapsed_us() for e in evts[i:i + per])
+                for i in range(0, len(evts), per)) / 1e3
+    return None
 
 
 def bound(nbytes: int, flops: int):
