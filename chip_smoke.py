@@ -157,12 +157,24 @@ script exits nonzero:
      (bf16 FCG) within 1 iteration of phase 5's, K1's launches in one
      cycle equal to its slab matvecs (its record in
      chiprun_out/bench_1000000.json).
+ 19. the config sweep (``gravomg_tpu_torch/bench_configs.py``, the
+     counterpart of scripts/bench_configs.py) for c1, c2 and c3 at the
+     script's sizes: c1 (5,000 icosphere vertices, Jacobi, 2 levels)
+     MG-PCG, c2 (35,000-point torus) 8 chained V-cycles and MG-PCG, c3
+     (170,000-point torus) heat_geodesics; each row (build seconds,
+     medians of 5 host-clock calls with CUDA-event times, busy share and
+     launches per call, residuals, iterations, levels, peak memory)
+     printed, K1's launches over the phase; c1's and c2's solves to 1e-8
+     with K1 launched in them, c3's phi finite.  Phases 14, 15 (a) and
+     16 take their recipes (points, seeds, config, right-hand sides) and
+     pipeline from the same module, so no config runs twice.
 
-Phases 3 (K1's check), 5, 6, 13-17 and 18 (a) and (b) are functions of
-(torch, device, n, ...) that also run on the CPU at a small n
+Phases 3 (K1's check), 5, 6, 13-17, 18 (a) and (b) and 19 are functions
+of (torch, device, n, ...) that also run on the CPU at a small n
 (tests/test_torch_smoke_k1.py, tests/test_torch_smoke_phases.py,
-tests/test_torch_smoke_multidevice.py, tests/test_torch_smoke_entry.py),
-but for 15 (b), which needs phase 3's hierarchy on the card.
+tests/test_torch_smoke_multidevice.py, tests/test_torch_smoke_entry.py,
+tests/test_torch_smoke_configs.py), but for 15 (b), which needs phase
+3's hierarchy on the card.
 
 A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
@@ -1276,37 +1288,34 @@ def phase_apps(torch, device, n, problem=None):
 def phase_lobpcg(torch, device, n):
     """Phase 14: ``laplace_eigs`` (k=12, 40 iterations, tol 1e-5) at
     ``n`` points on ``device``, the c6 recipe of
-    scripts/bench_configs.py."""
+    scripts/bench_configs.py (``gravomg_tpu_torch/bench_configs.py``'s
+    inputs and pipeline)."""
     import numpy as np
     import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.apps.spectral import spectral_alpha
-    from gravomg_tpu_torch.geometry.meshes import torus_points
-    from gravomg_tpu_torch.geometry.order import morton_order
     from gravomg_tpu_torch.utils.stage import synchronize
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    k = 12
+    k = bc.C6_K
     t0 = time.perf_counter()
-    pts = torus_points(n, seed=6).astype(np.float32)
-    pts = pts[morton_order(pts)]
-    graph = gt.grid_knn_graph_nosync(pts, 12, margin=2.4, device=device)
-    cfg = gt.MultigridConfig(coarse_threshold=800, smoother="chebyshev")
+    c6 = bc.c6_inputs(n)
+    cfg = c6.cfg
+    p = bc.pipeline(c6.points, c6.k, cfg, attach=False, alpha=spectral_alpha,
+                    device=device)
+    graph, h = p.graph, p.h
     lap, mass = gt.graph_laplacian(graph, "invdist")
     alpha = spectral_alpha(graph, lap_mass=(lap, mass))
-    op, _ = gt.screened_poisson_operator(graph, alpha=alpha,
-                                         lap_mass=(lap, mass))
-    gen = torch.Generator(device=device).manual_seed(0)
-    h, _ = gt.build_hierarchy_device(graph, op, cfg, generator=gen)
     synchronize(dev)
     out = {"n": n, "k": k, "alpha": float(alpha),
            "setup_s": time.perf_counter() - t0,
-           "levels": [lvl.op.num_vertices for lvl in h.solver.levels]}
+           "levels": [lvl.op.num_vertices for lvl in h.levels]}
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
     rec = {}
     t0 = time.perf_counter()
-    lams, vecs, res = gt.laplace_eigs(graph, k=k, cfg=cfg, h=h.solver,
+    lams, vecs, res = gt.laplace_eigs(graph, k=k, cfg=cfg, h=h,
                                       iters=40, tol=1e-5, record=rec)
     synchronize(dev)
     total = time.perf_counter() - t0
@@ -1355,55 +1364,29 @@ def _timed(torch, dev, fn, reps=10):
     return cuda_ms(fn, reps=reps)
 
 
-def c5_problem(torch, device, n):
-    """The c5 recipe of scripts/bench_configs.py at ``n`` points: torus
-    seed 4, Morton order, grid kNN k=12 margin 2.4, screened Poisson
-    alpha="auto", coarse_threshold=600, Chebyshev, the hierarchy built
-    by ``build_hierarchy_device`` (generator seeded 0) with slab forms
-    and uniform forms on the rest.  Returns (config, hierarchy)."""
-    import numpy as np
-    import gravomg_tpu_torch as gt
-    from gravomg_tpu_torch.geometry.meshes import torus_points
-    from gravomg_tpu_torch.geometry.order import morton_order
-    pts = torus_points(n, seed=4).astype(np.float32)
-    pts = pts[morton_order(pts)]
-    graph = gt.grid_knn_graph_nosync(pts, 12, margin=2.4, device=device)
-    op, _ = gt.screened_poisson_operator(graph, alpha="auto")
-    cfg = gt.MultigridConfig(coarse_threshold=600, smoother="chebyshev")
-    gen = torch.Generator(device=device).manual_seed(0)
-    h, _ = gt.build_hierarchy_device(graph, op, cfg, generator=gen)
-    return cfg, gt.attach_fast_operators(gt.attach_slab_operators(h.solver))
-
-
-def _worst_column(x, cols):
-    """Largest max|x[:, j] - cols[j]| / max|cols[j]| over the columns."""
-    return max(float((x[:, j] - c).abs().max())
-               / max(float(c.abs().max()), 1e-30)
-               for j, c in enumerate(cols))
-
-
 def phase_rhs_batch(torch, device, n, d):
     """Phase 15 (a): the c5 recipe at ``n`` points with ``d``
     right-hand sides (N(0,1) from ``default_rng(2)``, drawn (d, n) as
     the JAX recipe draws them, laid out (n, d)): one (n, d) V-cycle from
     zero against the d 1-D cycles of its columns (each column within
     ``TOL_COLUMNS`` of its largest entry), their times on the card and
-    B1's launches in the (n, d) cycle (above 0 on the card)."""
-    import numpy as np
+    B1's launches in the (n, d) cycle (above 0 on the card); inputs and
+    pipeline of ``gravomg_tpu_torch/bench_configs.py``."""
     import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
     from gravomg_tpu_torch.utils.stage import synchronize
     dev = torch.device(device)
-    cfg, h = c5_problem(torch, device, n)
-    rhs = np.random.default_rng(2).normal(size=(d, n)).astype(np.float32)
-    b = torch.as_tensor(np.ascontiguousarray(rhs.T), device=dev)
+    c5 = bc.c5_inputs(n, d)
+    cfg, h = c5.cfg, bc.pipeline(c5.points, c5.k, c5.cfg, device=device).h
+    b = torch.as_tensor(c5.rhs, device=dev)
     bcols = [b[:, j].contiguous() for j in range(d)]
     blockdense_matmat_cuda.launches = 0
     x = gt.v_cycle(h, torch.zeros_like(b), b, cfg)
     synchronize(dev)
     launches = blockdense_matmat_cuda.launches
-    worst = _worst_column(x, [gt.v_cycle(h, torch.zeros_like(c), c, cfg)
-                              for c in bcols])
+    worst = bc.worst_column(x, [gt.v_cycle(h, torch.zeros_like(c), c, cfg)
+                                for c in bcols])
     batch_ms = _timed(torch, dev,
                       lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
     seq_ms = _timed(torch, dev, lambda: [
@@ -1537,6 +1520,7 @@ def phase_rhs_1m(torch, cfg, h):
     per-bucket route, library (f32), bytes, multiply-adds, bound and
     share."""
     import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.ops.blockdense_cuda import (
         blockdense_matmat_cuda, slab_matmat_cuda, slab_matmat_plain)
     from gravomg_tpu_torch.parallel.sharding import drop_fast_forms
@@ -1554,7 +1538,7 @@ def phase_rhs_1m(torch, cfg, h):
     out.update(launches=blockdense_matmat_cuda.launches,
                slab_matvecs=matvecs)
     cols = [gt.v_cycle(h, torch.zeros_like(b1), b1, cfg)]
-    out["worst_column_rel"] = _worst_column(x[:, :1], cols)
+    out["worst_column_rel"] = bc.worst_column(x[:, :1], cols)
     finite = bool(torch.isfinite(x).all())
     out["vcycle64_ms"] = cuda_ms(
         lambda: gt.v_cycle(h, torch.zeros_like(b), b, cfg))
@@ -1651,33 +1635,22 @@ def phase_meshes(torch, device, n_meshes, n):
     against the per-mesh loop (card only), the padded row counts against
     the real ones, peak device memory above what the process held, and
     ``batched_solve``'s shared count and largest residual (reported:
-    the f32 stationary solve stalls above 1e-8)."""
-    import numpy as np
+    the f32 stationary solve stalls above 1e-8).  Inputs, pipeline and
+    check are ``gravomg_tpu_torch/bench_configs.py``'s."""
     import gravomg_tpu_torch as gt
-    from gravomg_tpu_torch.geometry.meshes import torus_points
-    from gravomg_tpu_torch.geometry.order import morton_order
+    from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.utils.stage import synchronize
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
-    cfg = gt.MultigridConfig(coarse_threshold=400, smoother="chebyshev",
-                             max_levels=3)
-    rng = np.random.default_rng(5)
+    c5b = bc.c5b_inputs(n, n_meshes)
+    cfg = c5b.cfg
     hs, build_s = [], 0.0
-    for i in range(n_meshes):
-        pts = torus_points(n, seed=200 + i)
-        pts = pts * (1.0 + 0.25 * rng.random(3))
-        pts = pts[morton_order(pts)].astype(np.float32)
-        graph = gt.grid_knn_graph_nosync(pts, 12, margin=2.4, device=device)
-        op, _ = gt.screened_poisson_operator(graph, alpha="auto")
-        synchronize(dev)
-        t0 = time.perf_counter()
-        h, _ = gt.build_hierarchy_device(
-            graph, op, cfg,
-            generator=torch.Generator(device=device).manual_seed(i))
-        synchronize(dev)
-        build_s += time.perf_counter() - t0
-        hs.append(h.solver)
+    for i, pts in enumerate(c5b.points):
+        p = bc.pipeline(pts, c5b.k, cfg, attach=False, device=device,
+                        generator=torch.Generator(device=device).manual_seed(i))
+        build_s += p.t_build_s
+        hs.append(p.h)
     real = [[lvl.op.num_vertices for lvl in h.levels] for h in hs]
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1688,18 +1661,10 @@ def phase_meshes(torch, device, n_meshes, n):
     synchronize(dev)
     attach_s = time.perf_counter() - t0
     rows = [lvl.op.num_vertices for lvl in hb.levels]
-    draws = np.random.default_rng(3).normal(size=(n_meshes, rows[0]))
-    bs = torch.zeros((n_meshes, rows[0]), dtype=torch.float32, device=dev)
-    for i, r in enumerate(real):
-        bs[i, :r[0]] = torch.as_tensor(draws[i, :r[0]], dtype=torch.float32)
+    bs = torch.as_tensor(bc.c5b_rhs([r[0] for r in real], rows[0]),
+                         device=dev)
     xs = gt.batched_v_cycle(hb, torch.zeros_like(bs), bs, cfg)
-    worst, padded_zero = 0.0, True
-    for i, (h, r) in enumerate(zip(hs, real)):
-        b = bs[i, :r[0]]
-        x1 = gt.v_cycle(h, torch.zeros_like(b), b, cfg)
-        worst = max(worst, float((xs[i, :r[0]] - x1).abs().max())
-                    / max(float(x1.abs().max()), 1e-30))
-        padded_zero = padded_zero and not bool(xs[i, r[0]:].any())
+    worst, padded_zero = bc.collection_check(hs, xs, bs, cfg)
     batch_ms = _timed(torch, dev, lambda: gt.batched_v_cycle(
         hb, torch.zeros_like(bs), bs, cfg))
     loop_ms = _timed(torch, dev, lambda: [
@@ -2144,6 +2109,45 @@ def phase_drivers(torch, device, n, main):
     return out
 
 
+def phase_configs(torch, device, n=None):
+    """Phase 19: c1, c2 and c3 of the config sweep
+    (``gravomg_tpu_torch/bench_configs.py``, the counterpart of
+    scripts/bench_configs.py) on ``device``, at the script's sizes
+    (``n`` None) or at ``n`` points each; each row printed, with K1's and
+    B1's launches over the phase (counts set to 0 just before it).  The
+    module checks each result: c1's and c2's MG-PCG to 1e-8 with K1
+    launched in the solve on the card, c3's phi finite."""
+    from gravomg_tpu_torch import bench_configs as bc
+    from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matmat_cuda,
+                                                       blockdense_matvec_cuda)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    blockdense_matvec_cuda.launches = 0
+    blockdense_matmat_cuda.launches = 0
+    rows = {}
+    for name in ("c1", "c2", "c3"):
+        rows[name] = bc.ALL[name](dev, n)
+        print(f"[19] {json.dumps(rows[name])}")
+    out = {"rows": rows, "k1_launches": blockdense_matvec_cuda.launches,
+           "b1_launches": blockdense_matmat_cuda.launches,
+           "phase_s": time.perf_counter() - t0}
+    c1, c2, c3 = rows["c1"], rows["c2"], rows["c3"]
+    print(f"[19] K1 launches over the phase {out['k1_launches']} (one call: "
+          f"c1 MG-PCG {c1['solve_k1_launches']}, c2 8 cycles "
+          f"{c2['vcycle8_k1_launches']}, c2 MG-PCG "
+          f"{c2['pcg_solve_k1_launches']}, c3 heat "
+          f"{c3['two_solve_heat_k1_launches']}); B1 {out['b1_launches']}")
+    print(f"[19] c1 n={c1['n']} levels {c1['levels']}: MG-PCG {c1['iters']} "
+          f"it to {c1['rel_residual']:.3e}, {c1['solve_s']:.4f} s; c2 "
+          f"n={c2['n']} levels {c2['levels']}: 8 cycles "
+          f"{c2['vcycle8_s']:.4f} s, MG-PCG {c2['iters']} it to "
+          f"{c2['rel_residual']:.3e}, {c2['pcg_solve_s']:.4f} s; c3 "
+          f"n={c3['n']} levels {c3['levels']}: heat_geodesics "
+          f"{c3['two_solve_heat_s']:.4f} s, finite {c3['finite']} (medians "
+          f"of {bc.REPS}, host clock); phase {out['phase_s']:.1f} s")
+    return out
+
+
 def _share_rows(obj, path=""):
     """(path, row) for every timed row of the report: a dict with a
     share of its bound and the bytes that bound counts."""
@@ -2253,6 +2257,7 @@ def main() -> int:
     del md_problem
     torch.cuda.empty_cache()
     report["drivers"] = phase_drivers(torch, "cuda", N, report["main"])
+    report["configs"] = phase_configs(torch, "cuda")
     # The CPU copy's solves come last: after half a minute of them
     # torch.profiler reports no device kernel any more in this process,
     # and the timing phases read the kernels' own times from it.
