@@ -407,7 +407,7 @@ def phase_kernel_check(torch, device, n, h=None):
     from gravomg_tpu_torch.ops.blockdense_cuda import (
         blockdense_matvec_cuda, blockdense_matvec_plain, slab_matvec_1d_fast,
         slab_matvec_plain)
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     if h is None:
         h = k1_problem(torch, device, n)[1]
     dev = torch.device(device)
@@ -550,7 +550,7 @@ def _cycle_account(torch, cfg, h, b, wrapper, tag, what):
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.probes.timing import HBM_BYTES_PER_S
     from gravomg_tpu_torch.solve import vcycle
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     seen = {"matvecs": 0, "m_bytes": 0}
     inner = vcycle.slab_matvec
 
@@ -589,7 +589,7 @@ def phase_main(torch, device, n, problem=None):
     from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matvec_cuda
     from gravomg_tpu_torch.probes.timing import cuda_ms
     from gravomg_tpu_torch.solve.vcycle import slab_slots
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     cfg, h, h_greedy = (k1_problem(torch, device, n) if problem is None
                         else problem)
     dev = torch.device(device)
@@ -1211,7 +1211,7 @@ def phase_apps(torch, device, n, problem=None):
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matmat_cuda,
                                                        blockdense_matvec_cuda)
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
     if problem is None:
         from gravomg_tpu_torch.probes.mxu_levels import bench_hierarchy
@@ -1294,7 +1294,7 @@ def phase_lobpcg(torch, device, n):
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.apps.spectral import spectral_alpha
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     k = bc.C6_K
@@ -1375,7 +1375,7 @@ def phase_rhs_batch(torch, device, n, d):
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
     c5 = bc.c5_inputs(n, d)
     cfg, h = c5.cfg, bc.pipeline(c5.points, c5.k, c5.cfg, device=device).h
@@ -1639,7 +1639,7 @@ def phase_meshes(torch, device, n_meshes, n):
     check are ``gravomg_tpu_torch/bench_configs.py``'s."""
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch import bench_configs as bc
-    from gravomg_tpu_torch.utils.stage import synchronize
+    from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()

@@ -9,6 +9,10 @@ X = -sign of the edge gradient of u.  The gradient lives on the graph's
 directed edges, g_ij = (u_j - u_i) / d_ij; the divergence at i sums
 X_ij / d_ij over its edges.  phi is shifted to phi[source] = 0 and
 scaled to a mean edge gradient of 1.
+
+Spans (``utils/profiling.py``): ``heat_geodesics`` around a call, with
+``heat.operators``, ``heat.field`` and ``heat.scale`` around its steps
+and the refit's ``rap.L<l>``, ``cheb.L<l>`` and ``coarse.factor``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from gravomg_tpu_torch.solve.rap import galerkin_rap
 from gravomg_tpu_torch.solve.smoothers import ChebyshevParams
 from gravomg_tpu_torch.solve.vcycle import SolverHierarchy, SolverLevel
 from gravomg_tpu_torch.types import EllOperator, Graph
-from gravomg_tpu_torch.utils.stage import stage
+from gravomg_tpu_torch.utils.profiling import span, stage
 
 
 def refit_hierarchy(h: Union[Hierarchy, SolverHierarchy],
@@ -43,14 +47,20 @@ def refit_hierarchy(h: Union[Hierarchy, SolverHierarchy],
     """
     hs = h.solver if isinstance(h, Hierarchy) else h
     ops = [new_fine_op]
-    for lvl in hs.levels[:-1]:
-        ops.append(galerkin_rap(ops[-1], lvl.u, cfg.degree_multiple))
-    levels = tuple(
-        SolverLevel(op=o, u=old.u, ut=old.ut, uw=old.uw, utw=old.utw,
-                    cheb=(ChebyshevParams.from_operator(o, cfg.chebyshev_ratio)
-                          if cfg.smoother == "chebyshev" else None))
-        for o, old in zip(ops, hs.levels))
-    return SolverHierarchy(levels=levels, coarse_chol=factor_coarse(ops[-1]))
+    for i, lvl in enumerate(hs.levels[:-1]):
+        with span("rap.L", i):
+            ops.append(galerkin_rap(ops[-1], lvl.u, cfg.degree_multiple))
+    levels = []
+    for i, (o, old) in enumerate(zip(ops, hs.levels)):
+        cheb = None
+        if cfg.smoother == "chebyshev":
+            with span("cheb.L", i):
+                cheb = ChebyshevParams.from_operator(o, cfg.chebyshev_ratio)
+        levels.append(SolverLevel(op=o, u=old.u, ut=old.ut, uw=old.uw,
+                                  utw=old.utw, cheb=cheb))
+    with span("coarse.factor"):
+        chol = factor_coarse(ops[-1])
+    return SolverHierarchy(levels=tuple(levels), coarse_chol=chol)
 
 
 def mean_edge_length(graph: Graph) -> torch.Tensor:
@@ -100,29 +110,35 @@ def heat_geodesics(graph: Graph, h: Union[Hierarchy, SolverHierarchy],
     tolerance.  ``record`` (a dict) receives per solve (``heat``,
     ``poisson``) the seconds of its refit and of its solve, its
     iterations and its relative residual."""
-    lap, mass = graph_laplacian(graph, "invdist")
-    mask = graph.mask
-    t = t_factor * mean_edge_length(graph) ** 2
+    with span("heat_geodesics"):
+        mask = graph.mask
+        with span("heat.operators"):
+            lap, mass = graph_laplacian(graph, "invdist")
+            t = t_factor * mean_edge_length(graph) ** 2
+            heat_op = lap._replace(diag=lap.diag * t + mass,
+                                   offdiag=lap.offdiag * t)
+            # L is singular on constants: shift it by the same floor as
+            # screened_poisson_operator(alpha="auto"), 1e-4 of the mean
+            # diagonal, which stays representable in f32 at any density.
+            eps = 1e-4 * torch.mean(lap.diag) / torch.mean(mass)
+            pois_op = lap._replace(diag=lap.diag + eps * mass)
+            delta = torch.zeros_like(mass)
+            delta[source] = 1.0
+        u = _solve("heat", h, heat_op, mass * delta, cfg, record)
 
-    heat_op = lap._replace(diag=lap.diag * t + mass, offdiag=lap.offdiag * t)
-    delta = torch.zeros_like(mass)
-    delta[source] = 1.0
-    u = _solve("heat", h, heat_op, mass * delta, cfg, record)
-
-    _, xdir = edge_field(graph, u)
-    d = _edge_lengths(graph)
-    w = torch.where(mask, 1.0 / torch.clamp(d, min=1e-8),
-                    torch.zeros_like(d))
-    div = torch.sum(w * xdir, dim=1)
-    # L is singular on constants: shift it by the same floor as
-    # screened_poisson_operator(alpha="auto"), 1e-4 of the mean
-    # diagonal, which stays representable in f32 at any density.
-    eps = 1e-4 * torch.mean(lap.diag) / torch.mean(mass)
-    pois_op = lap._replace(diag=lap.diag + eps * mass)
-    phi = _solve("poisson", h, pois_op, div - torch.mean(div), cfg, record)
-    phi = phi[source] - phi          # increasing away from the source
-    # Unit speed: the mean |edge gradient| of phi becomes 1.
-    gphi = torch.abs(phi[graph.safe_neighbors()] - phi[:, None]) / d
-    mean_grad = (torch.sum(torch.where(mask, gphi, torch.zeros_like(gphi)))
-                 / torch.clamp(torch.sum(mask), min=1))
-    return phi / torch.clamp(mean_grad, min=1e-12)
+        with span("heat.field"):
+            _, xdir = edge_field(graph, u)
+            d = _edge_lengths(graph)
+            w = torch.where(mask, 1.0 / torch.clamp(d, min=1e-8),
+                            torch.zeros_like(d))
+            div = torch.sum(w * xdir, dim=1)
+            rhs = div - torch.mean(div)
+        phi = _solve("poisson", h, pois_op, rhs, cfg, record)
+        with span("heat.scale"):
+            phi = phi[source] - phi          # increasing away from the source
+            # Unit speed: the mean |edge gradient| of phi becomes 1.
+            gphi = torch.abs(phi[graph.safe_neighbors()] - phi[:, None]) / d
+            mean_grad = (torch.sum(torch.where(mask, gphi,
+                                               torch.zeros_like(gphi)))
+                         / torch.clamp(torch.sum(mask), min=1))
+            return phi / torch.clamp(mean_grad, min=1e-12)

@@ -17,7 +17,7 @@ from gravomg_tpu_torch.geometry.laplacian import graph_laplacian
 from gravomg_tpu_torch.hierarchy import Hierarchy
 from gravomg_tpu_torch.solve.vcycle import SolverHierarchy, solve
 from gravomg_tpu_torch.types import Graph
-from gravomg_tpu_torch.utils.stage import stage
+from gravomg_tpu_torch.utils.profiling import stage
 
 
 def implicit_smooth(graph: Graph, h: Union[Hierarchy, SolverHierarchy],

@@ -29,7 +29,7 @@ from gravomg_tpu_torch.hierarchy import Hierarchy
 from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.solve.vcycle import SolverHierarchy, v_cycle
 from gravomg_tpu_torch.types import EllOperator, Graph
-from gravomg_tpu_torch.utils.stage import stage
+from gravomg_tpu_torch.utils.profiling import stage
 
 # Pinned Ritz value of a degenerate search direction: far above any
 # Laplacian eigenvalue, far below f32 overflow.

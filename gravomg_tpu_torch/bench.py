@@ -63,7 +63,7 @@ from gravomg_tpu_torch.solve.cg import mg_pcg, mg_solve
 from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.types import INVALID_INDEX
 from gravomg_tpu_torch.utils.device import resolve_device
-from gravomg_tpu_torch.utils.stage import synchronize
+from gravomg_tpu_torch.utils.profiling import synchronize
 
 DEFAULT_N = 1_000_000
 CHAINS = (2, 12, 32)        # cycles per timed chain (bench.py's N1, N2, N3)

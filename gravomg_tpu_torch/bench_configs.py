@@ -91,7 +91,7 @@ from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy,
                                             attach_slab_operators, v_cycle)
 from gravomg_tpu_torch.types import EllOperator, Graph
 from gravomg_tpu_torch.utils.device import resolve_device
-from gravomg_tpu_torch.utils.stage import synchronize
+from gravomg_tpu_torch.utils.profiling import synchronize
 
 BUILD_SEED = 0              # the generator of build_hierarchy_device
 KNN_MARGIN = 2.4            # grid kNN cell margin, as the script's

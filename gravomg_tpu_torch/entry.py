@@ -49,7 +49,7 @@ from gravomg_tpu_torch.parallel.launch import all_gather, run_ranks
 from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.solve.vcycle import attach_fast_operators, v_cycle
 from gravomg_tpu_torch.utils.device import resolve_device
-from gravomg_tpu_torch.utils.stage import stage
+from gravomg_tpu_torch.utils.profiling import stage
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENTRY_FIXTURE = os.path.join(ROOT, "assets", "entry_hierarchy.npz")

@@ -40,7 +40,7 @@ from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy, SolverLevel,
 from gravomg_tpu_torch.types import (INVALID_INDEX, EllOperator, Graph,
                                      HierarchyStats, Prolongation,
                                      TriangleSet)
-from gravomg_tpu_torch.utils.stage import stage
+from gravomg_tpu_torch.utils.profiling import stage
 
 
 class LevelData(NamedTuple):

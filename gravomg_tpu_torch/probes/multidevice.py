@@ -24,7 +24,7 @@ import gravomg_tpu_torch as gt
 from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
 from gravomg_tpu_torch.parallel import halo, sharding
 from gravomg_tpu_torch.parallel.launch import all_reduce_sum
-from gravomg_tpu_torch.utils.stage import synchronize
+from gravomg_tpu_torch.utils.profiling import synchronize
 
 
 class _Clock:

@@ -33,7 +33,7 @@ from gravomg_tpu_torch.ops.slab import SlabOperator
 from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
                                              kernel_events, library_bmm,
                                              matvec_bound)
-from gravomg_tpu_torch.utils.stage import synchronize
+from gravomg_tpu_torch.utils.profiling import synchronize
 
 
 BUILD_SEED = 0      # of the generator the sampling priorities come from

@@ -5,6 +5,11 @@ Python loops with the JAX package's exits: stop when the relative
 residual is at most ``tol`` or after ``max_iters`` iterations.  The
 residual norm is read on the host once per iteration for that test.
 Returns (x, relative_residual as a float, iterations).
+
+Spans (``utils/profiling.py``): ``krylov.iter`` around each iteration,
+``krylov.residual_read`` around each norm read on the host (``bnorm``,
+the first residual, one an iteration); ``mg_solve`` around the default
+solve and ``mg_solve.cast`` around its bf16 cast.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy,
                                             cast_fast_operators,
                                             level_matvec, v_cycle)
 from gravomg_tpu_torch.types import EllOperator
+from gravomg_tpu_torch.utils.profiling import span
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -38,28 +44,32 @@ def _krylov(op: EllOperator, b: torch.Tensor, precond: Matvec, tol: float,
         norm = lambda y: torch.sqrt(dot(y, y))  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
     tiny = torch.finfo(b.dtype).tiny
-    bnorm = max(float(norm(b)), 1e-30)
+    with span("krylov.residual_read"):
+        bnorm = max(float(norm(b)), 1e-30)
     r = b - mv(x)
     z = precond(r)
     p = z
     rz = dot(r, z)
-    rel = float(norm(r)) / bnorm
+    with span("krylov.residual_read"):
+        rel = float(norm(r)) / bnorm
     it = 0
     while rel > tol and it < max_iters:
-        ap = mv(p)
-        alpha = rz / torch.clamp(dot(p, ap), min=tiny)
-        x = x + alpha * p
-        r_new = r - alpha * ap
-        z = precond(r_new)
-        rz_new = dot(r_new, z)
-        if flexible:
-            # Polak-Ribiere: keeps p A-orthogonal when M varies.
-            beta = (rz_new - dot(r, z)) / torch.clamp(rz, min=tiny)
-        else:
-            beta = rz_new / torch.clamp(rz, min=tiny)
-        p = z + beta * p
-        r, rz = r_new, rz_new
-        rel = float(norm(r)) / bnorm
+        with span("krylov.iter"):
+            ap = mv(p)
+            alpha = rz / torch.clamp(dot(p, ap), min=tiny)
+            x = x + alpha * p
+            r_new = r - alpha * ap
+            z = precond(r_new)
+            rz_new = dot(r_new, z)
+            if flexible:
+                # Polak-Ribiere: keeps p A-orthogonal when M varies.
+                beta = (rz_new - dot(r, z)) / torch.clamp(rz, min=tiny)
+            else:
+                beta = rz_new / torch.clamp(rz, min=tiny)
+            p = z + beta * p
+            r, rz = r_new, rz_new
+            with span("krylov.residual_read"):
+                rel = float(norm(r)) / bnorm
         it += 1
     return x, rel, it
 
@@ -123,8 +133,11 @@ def mg_solve(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
     fine rows f32 MG-PCG; at or above it, with slab forms attached,
     flexible CG preconditioned by a bf16-cast V-cycle (CG's own matvec
     and residuals stay f32 on the exact operators)."""
-    lvl0 = h.levels[0]
-    if lvl0.op.num_vertices >= cfg.bf16_threshold and lvl0.banded is not None:
-        h16 = cast_fast_operators(h, torch.bfloat16)
-        return mg_fcg(h16, b, cfg, x0=x0, h_outer=h)
-    return mg_pcg(h, b, cfg, x0=x0)
+    with span("mg_solve"):
+        lvl0 = h.levels[0]
+        if (lvl0.op.num_vertices >= cfg.bf16_threshold
+                and lvl0.banded is not None):
+            with span("mg_solve.cast"):
+                h16 = cast_fast_operators(h, torch.bfloat16)
+            return mg_fcg(h16, b, cfg, x0=x0, h_outer=h)
+        return mg_pcg(h, b, cfg, x0=x0)

@@ -5,7 +5,9 @@ Levels that carry slab forms (``attach_slab_operators``) apply A, U and
 U^T through the block-window kernel (the transposed-tile kernel for the
 ``mxu`` form); ``attach_fast_operators`` gives the levels that have none
 the uniform block-dense forms; what has neither uses the ELL gather forms.
-The cycle is a plain Python recursion over the levels.
+The cycle is a plain Python recursion over the levels; each cycle is
+the span ``vcycle``, each visit of a level ``vcycle.L<l>`` and the
+coarsest solve ``vcycle.coarse`` (``utils/profiling.py``).
 
 A 2-D x (V, D) takes a level's fast form too when it is an 8-row slab
 form (through the batched kernel B1, one launch a matvec, m read once) or
@@ -43,6 +45,7 @@ from gravomg_tpu_torch.solve.smoothers import (ChebyshevParams, chebyshev,
                                                weighted_jacobi)
 from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.types import EllOperator, Prolongation, Restriction
+from gravomg_tpu_torch.utils.profiling import span
 
 FastOperator = Union[SlabOperator, BlockDenseOperator]
 
@@ -125,20 +128,24 @@ def _descend(h: SolverHierarchy, lvl: int, x: torch.Tensor, b: torch.Tensor,
     """One multigrid cycle starting (and ending) at level ``lvl``."""
     level = h.levels[lvl]
     if lvl == len(h.levels) - 1:
-        return coarse_solve(h.coarse_chol, b)
-    x = _smooth(level, x, b, cfg.pre_smooth, cfg, x0_zero=x0_zero)
-    r = b - level_matvec(level, x)
-    rc = _restrict_level(level, r)
-    # Coarse corrections start from zero: x0_zero saves their
-    # pre-smooth's first matvec (A 0 = 0 exactly).
-    ec = _descend(h, lvl + 1, torch.zeros_like(rc), rc, cfg, x0_zero=True)
-    # gamma-cycle: revisit the coarser level gamma-1 more times; repeats
-    # directly above the coarsest level would repeat an exact solve.
-    if lvl + 1 < len(h.levels) - 1:
-        for _ in range(cfg.cycle_gamma - 1):
-            ec = _descend(h, lvl + 1, ec, rc, cfg)
-    x = x + _prolong_level(level, ec)
-    return _smooth(level, x, b, cfg.post_smooth, cfg)
+        with span("vcycle.coarse"):
+            return coarse_solve(h.coarse_chol, b)
+    with span("vcycle.L", lvl):
+        x = _smooth(level, x, b, cfg.pre_smooth, cfg, x0_zero=x0_zero)
+        r = b - level_matvec(level, x)
+        rc = _restrict_level(level, r)
+        # Coarse corrections start from zero: x0_zero saves their
+        # pre-smooth's first matvec (A 0 = 0 exactly).
+        ec = _descend(h, lvl + 1, torch.zeros_like(rc), rc, cfg,
+                      x0_zero=True)
+        # gamma-cycle: revisit the coarser level gamma-1 more times;
+        # repeats directly above the coarsest level would repeat an
+        # exact solve.
+        if lvl + 1 < len(h.levels) - 1:
+            for _ in range(cfg.cycle_gamma - 1):
+                ec = _descend(h, lvl + 1, ec, rc, cfg)
+        x = x + _prolong_level(level, ec)
+        return _smooth(level, x, b, cfg.post_smooth, cfg)
 
 
 def v_cycle(h: SolverHierarchy, x: torch.Tensor, b: torch.Tensor,
@@ -147,7 +154,8 @@ def v_cycle(h: SolverHierarchy, x: torch.Tensor, b: torch.Tensor,
     ``cfg.cycle_gamma``) for x, b (V,) or (V, D).  ``x0_zero=True``
     asserts ``x`` is exactly zero and saves the fine pre-smooth's first
     matvec."""
-    return _descend(h, 0, x, b, cfg, x0_zero=x0_zero)
+    with span("vcycle"):
+        return _descend(h, 0, x, b, cfg, x0_zero=x0_zero)
 
 
 def solve(h: SolverHierarchy, b: torch.Tensor, cfg: MultigridConfig,
