@@ -8,7 +8,7 @@ script exits nonzero:
 
   1. environment: torch, CUDA, the card's name and power limit, nvcc,
      g++ and triton versions;
-  2. build: the four kernels (nvcc, sm_90a, one process per source) and
+  2. build: the five kernel sources (nvcc, sm_90a, one process each) and
      the C++ coarsener (g++) from the sources in the checkout, all
      started together;
   3. setup at n = 1,000,000 (the bench's recipe): Morton-ordered torus,
@@ -168,6 +168,17 @@ script exits nonzero:
      with K1 launched in them, c3's phi finite.  Phases 14, 15 (a) and
      16 take their recipes (points, seeds, config, right-hand sides) and
      pipeline from the same module, so no config runs twice.
+ 20. the uniform kernel U1 (``csrc/uniform_matvec.cu``), run right after
+     phase 7 on phase 3's hierarchy with the uniform forms of
+     ``attach_fast_operators`` (A, U and U^T of level 4 at 1M, as the
+     bench and the benchmark run them): on each form, f32 and bf16 m, U1
+     against the plain path ``blockdense_matvec`` (each row within 1e-5
+     of its sum of absolute terms) and twice on one x (bitwise equal),
+     its bytes, bound, times alone (L2 warm and flushed), per call and on
+     the host, the plain path's and the library's (``torch.bmm`` on
+     gathered windows, f32); then ``mg_solve`` with U1's launches counted
+     from 0, equal to the cycle's 1-D uniform matvecs, and the same solve
+     through the plain path (iterations within 1).
 
 Phases 3 (K1's check), 5, 6, 13-17, 18 (a) and (b) and 19 are functions
 of (torch, device, n, ...) that also run on the CPU at a small n
@@ -180,13 +191,13 @@ A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
 published 3.35 TB/s, or its multiply-adds (two operations each) over the
 published 67 TFLOP/s of f32 outside the tensor cores, whichever is
-larger (bytes for all four: B1's multiply-adds are counted on the
+larger (bytes for all five: B1's multiply-adds are counted on the
 positions it multiplies, those where a block's 8 rows hold a nonzero;
 K1's bytes are those of the blocks inv_block_perm names);
 gravomg_tpu_torch/probes/timing.py computes it.  A share of the bound
 above 1.05 means a count is wrong, and fails the run.
 
-The line before the last is a JSON object describing the four kernels;
+The line before the last is a JSON object describing the five kernels;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits nonzero and prints
 no result.  Longer results go to chiprun_out/chip_smoke.json.
@@ -253,10 +264,12 @@ def phase_environment(torch):
 
 
 def _libraries():
-    from gravomg_tpu_torch.ops import blockdense_cuda, mxu_cuda, window_gather
+    from gravomg_tpu_torch.ops import (blockdense_cuda, mxu_cuda,
+                                       uniform_cuda, window_gather)
     return {"blockdense_matvec": blockdense_cuda.LIBRARY,
             "blockdense_matmat": blockdense_cuda.MATMAT_LIBRARY,
             "mxu_matvec": mxu_cuda.LIBRARY,
+            "uniform_matvec": uniform_cuda.LIBRARY,
             "window_gather": window_gather.LIBRARY}
 
 
@@ -869,8 +882,8 @@ def phase_mxu_setup(torch):
                   + ("" if (li, field) in slots else " (below 4096 rows)"))
             if (li, field) in slots and mx <= NW_MAX and kind != "MXU":
                 bad.append(f"L{li} {label}")
-    print(f"[9] attach {info['attach_s']:.1f} s; uniform forms run plain "
-          f"torch, as the JAX package runs them through XLA")
+    print(f"[9] attach {info['attach_s']:.1f} s; uniform forms run U1 "
+          f"(csrc/uniform_matvec.cu) on a 1-D x, plain torch on a 2-D x")
     if bad:
         raise AssertionError(f"slab slots of at most {NW_MAX} windows "
                              f"without their MXU form: {bad}")
@@ -2148,6 +2161,101 @@ def phase_configs(torch, device, n=None):
     return out
 
 
+def phase_uniform(torch, cfg, h):
+    """Phase 20: the uniform kernel U1 on the main path, phase 3's
+    hierarchy with the uniform forms ``attach_fast_operators`` gives the
+    levels below the slab forms, as ``attach_operators`` gives them to
+    the bench and the benchmark.  Each uniform form, f32 and bf16 m: U1
+    against the plain path (``probes/uniform.py::check``), twice on one
+    x (bitwise equal), and ``measure_form``'s bytes, bound and times.
+    Then ``mg_solve`` with U1's count set to 0 just before and read just
+    after, which must equal the cycle's 1-D matvecs on uniform forms, and
+    the same solve through the plain path (iterations within 1)."""
+    import numpy as np
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
+                                                  blockdense_matvec)
+    from gravomg_tpu_torch.ops.uniform_cuda import uniform_matvec_cuda
+    from gravomg_tpu_torch.probes import uniform
+    from gravomg_tpu_torch.solve import vcycle
+    hf = gt.attach_fast_operators(h)
+    forms = [(f"L{li} {label}", getattr(lvl, field))
+             for li, lvl in enumerate(hf.levels) for field, label in FIELDS
+             if isinstance(getattr(lvl, field), BlockDenseOperator)]
+    if not forms:
+        raise AssertionError("the 1M hierarchy has no uniform form")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {"forms": {}, "worst_abs": 0.0}
+    for label, op in forms:
+        x = torch.randn(op.n_cols, generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            form = op._replace(m=op.m.to(dt))
+            y1 = uniform_matvec_cuda(form, x)
+            y2 = uniform_matvec_cuda(form, x)
+            chk = uniform.check(form, x, y1)
+            if not (chk["within_tol"] and torch.equal(y1, y2)):
+                raise AssertionError(f"U1 on {label} {_dtype_name(dt)}: "
+                                     f"{chk}, bitwise repeatable "
+                                     f"{torch.equal(y1, y2)}")
+            row = uniform.measure_form(form, x)
+            row.update(chk)
+            out["forms"][f"{label} {_dtype_name(dt)}"] = row
+            out["worst_abs"] = max(out["worst_abs"], chk["max_abs_err"])
+            print(f"[20] {label} {row['dtype']} m {row['m_shape']}: U1 per "
+                  f"call {row['per_call_ms']:.4f} ms (host "
+                  f"{row['host_us']:.1f} us), alone "
+                  f"{_fmt(row['alone_ms'], 4)} ms, L2 flushed "
+                  f"{_fmt(row['alone_cold_ms'], 4)} ms; bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+                  f"{row['io_bytes']} bytes); plain path "
+                  f"{row['plain_ms']:.4f} ms (host "
+                  f"{row['plain_host_us']:.1f} us, "
+                  f"{row['plain_launches_a_call']} launches); library "
+                  + ("none" if row["library_ms"] is None
+                     else f"{row['library_ms']:.4f} ms")
+                  + f"; max|d| {chk['max_abs_err']:.3e} within "
+                  f"{uniform.TOL} of |terms|; bitwise repeatable")
+    out["timed"] = f"{forms[0][0]} float32"
+
+    b = torch.as_tensor(np.random.default_rng(0).normal(size=N)
+                        .astype(np.float32), device="cuda")
+    inner = vcycle.uniform_matvec
+    matvecs = [0]
+
+    def counted(op, x):
+        if x.ndim == 1 and not op.stacked:
+            matvecs[0] += 1
+        return inner(op, x)
+
+    uniform_matvec_cuda.launches = 0
+    vcycle.uniform_matvec = counted
+    try:
+        _, rel, it = gt.mg_solve(hf, b, cfg)
+        torch.cuda.synchronize()
+    finally:
+        vcycle.uniform_matvec = inner
+    out["launches"] = launches = uniform_matvec_cuda.launches
+    vcycle.uniform_matvec = blockdense_matvec
+    try:
+        _, rel_plain, it_plain = gt.mg_solve(hf, b, cfg)
+    finally:
+        vcycle.uniform_matvec = inner
+    out.update(matvecs=matvecs[0], iters=it, rel=rel, plain_iters=it_plain,
+               plain_rel=rel_plain)
+    print(f"[20] mg_solve with the uniform forms: {it} iterations to "
+          f"{rel:.3e}, U1 launched {launches} times for {matvecs[0]} 1-D "
+          f"uniform matvecs; through the plain path {it_plain} iterations "
+          f"to {rel_plain:.3e}")
+    if not (0 < launches == matvecs[0]):
+        raise AssertionError(f"U1 launched {launches} times for "
+                             f"{matvecs[0]} uniform matvecs, not once each")
+    if not (rel <= 1e-8 and rel_plain <= 1e-8 and abs(it - it_plain) <= 1):
+        raise AssertionError(f"mg_solve through U1: {it} iterations to "
+                             f"{rel}; the plain path {it_plain} to "
+                             f"{rel_plain}")
+    return out
+
+
 def _share_rows(obj, path=""):
     """(path, row) for every timed row of the report: a dict with a
     share of its bound and the bytes that bound counts."""
@@ -2210,6 +2318,7 @@ def main() -> int:
     report["timing"] = phase_timing(torch, "cuda", N, h)
     report["profile"] = phase_profile(torch, cfg, h,
                                       report["main"]["vcycle_ms"])
+    report["uniform"] = phase_uniform(torch, cfg, h)
     report["windows_1m"] = phase_window_finding(h)
     report["apps"] = phase_apps(torch, "cuda", N, (cfg, h, graph))
     report["rhs_1m"] = phase_rhs_1m(torch, cfg, h)
@@ -2273,6 +2382,7 @@ def main() -> int:
     m32 = report["mxu_timing"]["L0 A float32"]
     b32 = report["rhs_1m"]["D64 float32"]
     g1m = report["gather"]["P1_1000000"]
+    u32 = report["uniform"]["forms"][report["uniform"]["timed"]]
     kernels = {"kernels": [{
         "name": "blockdense_matvec",
         "route": "cuda",
@@ -2328,6 +2438,19 @@ def main() -> int:
         "bound_ms": b32["bound_ms"],
         "bound_by": b32["bound_by"],
         "library_ms": b32["library_ms"],
+    }, {
+        "name": "uniform_matvec",
+        "route": "cuda",
+        "source": "gravomg_tpu_torch/csrc/uniform_matvec.cu",
+        # No TPU kernel: the JAX package runs uniform forms through XLA.
+        "replaces": "none (XLA: gravomg_tpu/ops/blockdense.py:285)",
+        "launches": report["uniform"]["launches"],
+        "max_abs_err": report["uniform"]["worst_abs"],
+        "ms": u32["per_call_ms"],
+        "plain_ms": u32["plain_ms"],
+        "bound_ms": u32["bound_ms"],
+        "bound_by": u32["bound_by"],
+        "library_ms": u32["library_ms"],
     }]}
     _check_shares(kernels["kernels"], report)
     print(f"[done] {report['total_s']:.1f} s")

@@ -8,7 +8,10 @@ as are the transposed-tile SpMV of the ``mxu`` slab form
 take.  A (V, D) right-hand side on the 8-row slab form runs the batched
 kernel B1 (``csrc/blockdense_matmat.cu``), one launch a slab matvec,
 which reads the window matrices once for all columns and skips their
-all-zero positions.  The applications (``apps``: Poisson
+all-zero positions.  The uniform block-dense forms of the small levels
+run one launch a matvec through the uniform kernel
+(``csrc/uniform_matvec.cu``) for a 1-D right-hand side on the card.
+The applications (``apps``: Poisson
 solves, heat geodesics, implicit smoothing, Laplace eigenpairs) run on
 the same stack; ``parallel`` stacks a collection of meshes into one
 batched cycle and shards a hierarchy's rows over the ranks of a

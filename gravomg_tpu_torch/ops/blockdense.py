@@ -22,7 +22,9 @@ slab forms do not take (unaligned windows, window 0 anchored at
 XLA matvec, which rounds the gathered x to m's dtype; the JAX package
 runs these forms through XLA, never through a Pallas kernel.  That
 matvec also takes D right-hand sides at once, and a stack of
-same-shape operators (``parallel/batch.py``).
+same-shape operators (``parallel/batch.py``).  One form on a 1-D x on
+the card takes the uniform kernel instead (``ops/uniform_cuda.py``),
+one launch for the same function.
 """
 
 from __future__ import annotations

@@ -32,8 +32,8 @@ import torch
 import torch.distributed as dist
 
 from gravomg_tpu_torch.config import MultigridConfig
-from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
-                                              blockdense_matvec)
+from gravomg_tpu_torch.ops.blockdense import BlockDenseOperator
+from gravomg_tpu_torch.ops.uniform_cuda import uniform_matvec
 from gravomg_tpu_torch.parallel.launch import all_gather, all_reduce_sum
 from gravomg_tpu_torch.prolong.operator import prolong, restrict_gather
 from gravomg_tpu_torch.solve.cg import fcg, pcg
@@ -290,7 +290,7 @@ def _fast_rows(form, x_full: torch.Tensor, span) -> torch.Tensor:
     row-local uniform form computes only them, a whole form all rows."""
     if (isinstance(form, BlockDenseOperator)
             and form.n_rows == span[1] - span[0]):
-        y = blockdense_matvec(form._replace(diag=None), x_full)
+        y = uniform_matvec(form._replace(diag=None), x_full)
         if form.diag is None:
             return y
         diag = form.diag if x_full.ndim == 1 else form.diag[:, None]

@@ -4,7 +4,9 @@
 Levels that carry slab forms (``attach_slab_operators``) apply A, U and
 U^T through the block-window kernel (the transposed-tile kernel for the
 ``mxu`` form); ``attach_fast_operators`` gives the levels that have none
-the uniform block-dense forms; what has neither uses the ELL gather forms.
+the uniform block-dense forms, which a 1-D x on the card applies in one
+launch of the uniform kernel (``ops/uniform_cuda.py``); what has neither
+uses the ELL gather forms.
 The cycle is a plain Python recursion over the levels; each cycle is
 the span ``vcycle``, each visit of a level ``vcycle.L<l>`` and the
 coarsest solve ``vcycle.coarse`` (``utils/profiling.py``).
@@ -35,9 +37,10 @@ from gravomg_tpu_torch.ops.blockdense import (BlockDenseOperator,
                                               block_anchors,
                                               blockdense_from_ell,
                                               blockdense_from_operator,
-                                              blockdense_matvec, trim_escape)
+                                              trim_escape)
 from gravomg_tpu_torch.ops.slab import (WINDOW, SlabOperator,
                                         slab_from_ell, slab_matvec)
+from gravomg_tpu_torch.ops.uniform_cuda import uniform_matvec
 from gravomg_tpu_torch.prolong.operator import (build_restriction, prolong,
                                                 restrict, restrict_gather)
 from gravomg_tpu_torch.solve.coarse import coarse_solve
@@ -69,7 +72,7 @@ def apply_fast(op: FastOperator, x: torch.Tensor) -> torch.Tensor:
     """A slab or uniform block-dense form on x (see :func:`takes`)."""
     if isinstance(op, SlabOperator):
         return slab_matvec(op, x)
-    return blockdense_matvec(op, x)
+    return uniform_matvec(op, x)
 
 
 def takes(op: Optional[FastOperator], x: torch.Tensor) -> bool:
