@@ -90,14 +90,19 @@ script exits nonzero:
  14. MG-preconditioned LOBPCG at 100k, the c6 recipe of
      scripts/bench_configs.py (torus seed 6, grid kNN k=12,
      coarse_threshold=800, Chebyshev, alpha = ``spectral_alpha``, the
-     hierarchy built on the card, no fast forms): ``laplace_eigs`` k=12,
-     40 iterations, tol 1e-5, with iterations, seconds in all and per
-     iteration (device block; Rayleigh-Ritz solve in f64 on the host,
-     transfers included), lam_0, lam_1, lam_11, max_resnorm against the
-     c6 target 1e-2, max|X^T M X - I| and the peak device memory of the
-     eigensolve above what the process held before it; the values
-     finite and ascending, max|X^T M X - I| <= 1e-4, |lam_0| <= 1e-3 *
-     lam_11;
+     hierarchy built on the card) with the forms ``attach_operators``
+     gives it, as the benchmark's torus100k.eigs cell sets it up:
+     ``laplace_eigs`` k=12, 40 iterations, tol 1e-5, with iterations,
+     seconds in all and per iteration (device block; Rayleigh-Ritz solve
+     in f64 on the host, transfers included), lam_0, lam_1, lam_11,
+     max_resnorm against the c6 target 1e-2, max|X^T M X - I| and the
+     peak device memory of the eigensolve above what the process held
+     before it; the values finite and ascending, max|X^T M X - I| <=
+     1e-4, |lam_0| <= 1e-3 * lam_11; B1's launches in the call, counted
+     from 0, equal to the cycle's (V, 12) slab matvecs; B1 against its
+     twin on every slab form of that hierarchy at D=12 (per bucket and
+     in one launch, f32 and bf16 m, bitwise repeatable), and B1 on its
+     level-0 A at D=12, f32, timed as in phase 15 (b);
  15. many right-hand sides on one hierarchy, B1 (the batched
      block-window kernel, one launch a slab matvec): (b), run right
      after phase 13 on phase 3's 1M hierarchy, the share of nonzero
@@ -197,7 +202,9 @@ K1's bytes are those of the blocks inv_block_perm names);
 gravomg_tpu_torch/probes/timing.py computes it.  A share of the bound
 above 1.05 means a count is wrong, and fails the run.
 
-The line before the last is a JSON object describing the five kernels;
+The line before the last is a JSON object describing the five kernels,
+B1 in two rows (``case``: D=64 on the 1M level-0 A of phase 15 (b), and
+D=12 on the 100k level-0 A of phase 14, where laplace_eigs runs it);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits nonzero and prints
 no result.  Longer results go to chiprun_out/chip_smoke.json.
@@ -1302,11 +1309,20 @@ def phase_lobpcg(torch, device, n):
     """Phase 14: ``laplace_eigs`` (k=12, 40 iterations, tol 1e-5) at
     ``n`` points on ``device``, the c6 recipe of
     scripts/bench_configs.py (``gravomg_tpu_torch/bench_configs.py``'s
-    inputs and pipeline)."""
+    inputs and pipeline) on the hierarchy with ``attach_operators``'
+    forms (slab forms from ``slab_min_rows(n)`` rows: the benchmark's
+    4096 at 100k).  B1's launches in the call are counted from 0 and
+    must equal the cycle's (V, k) slab matvecs on the card (0 off it),
+    both counted where the Python wrapper runs (a step that replays the
+    cycle as a CUDA graph passes through neither);
+    on the card B1 is also held to its twin on every slab form at D=k
+    and timed on level-0 A."""
     import numpy as np
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.apps.spectral import spectral_alpha
+    from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
+    from gravomg_tpu_torch.solve.vcycle import attach_operators
     from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -1314,9 +1330,10 @@ def phase_lobpcg(torch, device, n):
     t0 = time.perf_counter()
     c6 = bc.c6_inputs(n)
     cfg = c6.cfg
-    p = bc.pipeline(c6.points, c6.k, cfg, attach=False, alpha=spectral_alpha,
+    p = bc.pipeline(c6.points, c6.k, cfg, attach=False, alpha="spectral",
                     device=device)
-    graph, h = p.graph, p.h
+    graph = p.graph
+    h = attach_operators(p.h, slab_min_rows=slab_min_rows(n))
     lap, mass = gt.graph_laplacian(graph, "invdist")
     alpha = spectral_alpha(graph, lap_mass=(lap, mass))
     synchronize(dev)
@@ -1327,11 +1344,14 @@ def phase_lobpcg(torch, device, n):
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
     rec = {}
+    blockdense_matmat_cuda.launches = 0
     t0 = time.perf_counter()
-    lams, vecs, res = gt.laplace_eigs(graph, k=k, cfg=cfg, h=h,
-                                      iters=40, tol=1e-5, record=rec)
+    (lams, vecs, res), matvecs = _count_slab_matvecs(
+        torch, lambda: gt.laplace_eigs(graph, k=k, cfg=cfg, h=h, iters=40,
+                                       tol=1e-5, record=rec))
     synchronize(dev)
     total = time.perf_counter() - t0
+    launches = blockdense_matmat_cuda.launches
     v64 = vecs.double()
     orth = float((v64.T @ (mass.double()[:, None] * v64)
                   - torch.eye(k, dtype=torch.float64, device=vecs.device))
@@ -1342,7 +1362,7 @@ def phase_lobpcg(torch, device, n):
     rr = [st["rr_s"] for st in steps]
     out.update(iters=rec["iters"], total_s=total, block_s=block, rr_s=rr,
                lams=lam.tolist(), max_resnorm=float(res.max()),
-               orth_err=orth,
+               orth_err=orth, b1_launches=launches, slab_matvecs=matvecs,
                # Above what the process held before (the 200k hierarchy).
                peak_bytes=torch.cuda.max_memory_allocated() - held
                if on_card else None)
@@ -1356,7 +1376,8 @@ def phase_lobpcg(torch, device, n):
           f"{lam[-1]:.6g}; max_resnorm {out['max_resnorm']:.3e} (c6 target "
           f"1e-2); max|X^T M X - I| {orth:.3e}; peak device memory of "
           f"laplace_eigs {out['peak_bytes']} bytes (above what the process "
-          f"held before it)")
+          f"held before it); B1 launched {launches} times for {matvecs} "
+          f"({n}, {k}) slab matvecs")
     finite = all(bool(torch.isfinite(t).all()) for t in (lams, vecs, res))
     ascending = bool(np.all(np.diff(lam) >= 0))
     if not (finite and ascending and orth <= 1e-4
@@ -1364,6 +1385,15 @@ def phase_lobpcg(torch, device, n):
         raise AssertionError(f"laplace_eigs failed its checks: finite "
                              f"{finite}, ascending {ascending}, orth {orth}, "
                              f"lams {lam}")
+    if launches != (matvecs if on_card else 0) or not matvecs:
+        raise AssertionError(f"B1 launched {launches} times for {matvecs} "
+                             f"slab matvecs of laplace_eigs on {dev.type}")
+    if on_card:
+        out["check"] = _check_matmat(torch, _slabs(h), (k,), "14")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        xx = torch.randn((n, k), generator=gen, device="cuda")
+        out[f"D{k} float32"] = _b1_row(torch, h.levels[0].banded, xx,
+                                       torch.float32, "14")
     return out
 
 
@@ -1534,12 +1564,9 @@ def phase_rhs_1m(torch, cfg, h):
     share."""
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch import bench_configs as bc
-    from gravomg_tpu_torch.ops.blockdense_cuda import (
-        blockdense_matmat_cuda, slab_matmat_cuda, slab_matmat_plain)
+    from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
     from gravomg_tpu_torch.parallel.sharding import drop_fast_forms
-    from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
-                                                 kernel_ms, library_bmm,
-                                                 matvec_bound, nonzero_pairs)
+    from gravomg_tpu_torch.probes.timing import cuda_ms
     d = 64
     out = {"nonzero": _nonzero_positions(_slabs(h), "15")}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1593,45 +1620,57 @@ def phase_rhs_1m(torch, cfg, h):
     for dd in (3, d):
         xx = torch.randn((N, dd), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
-            sd = _slab_on(a0, dt)
-            bs = list(sd.buckets)
-            kern = lambda: slab_matmat_cuda(sd, xx)
-            plain = lambda: slab_matmat_plain(sd, xx)
-            p1 = cuda_ms(plain)
-            k1 = cuda_ms(kern)
-            k2 = cuda_ms(kern)
-            p2 = cuda_ms(plain)
-            per_bucket = cuda_ms(bucket_loop(blockdense_matmat_cuda, bs, xx))
-            alone = kernel_ms(kern, "blockdense_matmat_kernel")
-            bound_ms, bound_by, io_bytes = matvec_bound(bs, xx)
-            madds = 8 * dd * nonzero_pairs(bs)
-            # No library call for bf16 m: torch.bmm in bf16 rounds X.
-            lib = (cuda_ms(library_bmm(bs, xx)) if dt == torch.float32
-                   else None)
-            name = f"D{dd} {_dtype_name(dt)}"
-            k_ms = min(k1, k2)
-            out[name] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                         "per_bucket_ms": per_bucket,
-                         "alone_ms": alone, "io_bytes": io_bytes,
-                         "multiply_adds": madds, "bound_ms": bound_ms,
-                         "bound_by": bound_by,
-                         "share_of_bound": bound_ms / k_ms,
-                         "alone_share_of_bound": (None if alone is None
-                                                  else bound_ms / alone),
-                         "library_ms": lib}
-            print(f"[15] B1 level-0 A ({len(bs)} buckets, one launch) "
-                  f"{name}: per call {k1:.3f}/{k2:.3f} ms, kernel alone "
-                  f"{_fmt(alone)} ms; twin {p1:.3f}/{p2:.3f} ms; per-bucket "
-                  f"route {per_bucket:.3f} ms; {io_bytes} bytes, {madds} "
-                  f"multiply-adds (nonzero positions), bound "
-                  f"{bound_ms:.3f} ms ({bound_by}), share "
-                  f"{bound_ms / k_ms:.2f} (alone "
-                  f"{_fmt(out[name]['alone_share_of_bound'], 2)}); "
-                  f"library (one torch.bmm per bucket, windows gathered) "
-                  + ("none" if lib is None else f"{lib:.3f} ms"))
+            out[f"D{dd} {_dtype_name(dt)}"] = _b1_row(torch, a0, xx, dt,
+                                                      "15")
         del xx
     del b, b1
     return out
+
+
+def _b1_row(torch, sop, xx, dt, tag):
+    """B1 in one launch on the slab form ``sop`` (m in ``dt``) and the
+    (n, D) block ``xx``: per call, alone, plain twin, the per-bucket
+    route, library (f32), bytes, multiply-adds, bound and share."""
+    from gravomg_tpu_torch.ops.blockdense_cuda import (
+        blockdense_matmat_cuda, slab_matmat_cuda, slab_matmat_plain)
+    from gravomg_tpu_torch.probes.timing import (bucket_loop, cuda_ms,
+                                                 kernel_ms, library_bmm,
+                                                 matvec_bound, nonzero_pairs)
+    dd = xx.shape[1]
+    sd = _slab_on(sop, dt)
+    bs = list(sd.buckets)
+    kern = lambda: slab_matmat_cuda(sd, xx)
+    plain = lambda: slab_matmat_plain(sd, xx)
+    p1 = cuda_ms(plain)
+    k1 = cuda_ms(kern)
+    k2 = cuda_ms(kern)
+    p2 = cuda_ms(plain)
+    per_bucket = cuda_ms(bucket_loop(blockdense_matmat_cuda, bs, xx))
+    alone = kernel_ms(kern, "blockdense_matmat_kernel")
+    bound_ms, bound_by, io_bytes = matvec_bound(bs, xx)
+    madds = 8 * dd * nonzero_pairs(bs)
+    # No library call for bf16 m: torch.bmm in bf16 rounds X.
+    lib = cuda_ms(library_bmm(bs, xx)) if dt == torch.float32 else None
+    name = f"D{dd} {_dtype_name(dt)}"
+    k_ms = min(k1, k2)
+    row = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+           "per_bucket_ms": per_bucket, "alone_ms": alone,
+           "io_bytes": io_bytes, "multiply_adds": madds,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / k_ms,
+           "alone_share_of_bound": (None if alone is None
+                                    else bound_ms / alone),
+           "library_ms": lib}
+    print(f"[{tag}] B1 level-0 A ({len(bs)} buckets, one launch) {name}: "
+          f"per call {k1:.3f}/{k2:.3f} ms, kernel alone {_fmt(alone)} ms; "
+          f"twin {p1:.3f}/{p2:.3f} ms; per-bucket route {per_bucket:.3f} "
+          f"ms; {io_bytes} bytes, {madds} multiply-adds (nonzero "
+          f"positions), bound {bound_ms:.3f} ms ({bound_by}), share "
+          f"{bound_ms / k_ms:.2f} (alone "
+          f"{_fmt(row['alone_share_of_bound'], 2)}); library (one "
+          f"torch.bmm per bucket, windows gathered) "
+          + ("none" if lib is None else f"{lib:.3f} ms"))
+    return row
 
 
 def phase_meshes(torch, device, n_meshes, n):
@@ -2276,7 +2315,8 @@ def _check_shares(kernels, report):
     report, per call and alone (the rows whose working set fits in L2
     are timed with L2 flushed before each run, so a bound by device
     memory holds for them too)."""
-    shares = {k["name"]: k["bound_ms"] / k["ms"] for k in kernels}
+    shares = {" ".join(filter(None, (k["name"], k.get("case")))):
+              k["bound_ms"] / k["ms"] for k in kernels}
     for path, row in _share_rows(report):
         shares[path] = row["share_of_bound"]
         if row.get("alone_share_of_bound") is not None:
@@ -2381,6 +2421,8 @@ def main() -> int:
     f32 = report["timing"]["float32"]
     m32 = report["mxu_timing"]["L0 A float32"]
     b32 = report["rhs_1m"]["D64 float32"]
+    lob = report["lobpcg"]
+    e32 = lob[f"D{lob['k']} float32"]
     g1m = report["gather"]["P1_1000000"]
     u32 = report["uniform"]["forms"][report["uniform"]["timed"]]
     kernels = {"kernels": [{
@@ -2427,6 +2469,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "blockdense_matmat",
+        "case": "D=64, 1M level-0 A (phase 15 b)",
         "route": "cuda",
         "source": "gravomg_tpu_torch/csrc/blockdense_matmat.cu",
         "replaces": "gravomg_tpu/ops/pallas_blockdense.py:64 under jax.vmap "
@@ -2438,6 +2481,20 @@ def main() -> int:
         "bound_ms": b32["bound_ms"],
         "bound_by": b32["bound_by"],
         "library_ms": b32["library_ms"],
+    }, {
+        "name": "blockdense_matmat",
+        "case": f"D={lob['k']}, 100k level-0 A, laplace_eigs (phase 14)",
+        "route": "cuda",
+        "source": "gravomg_tpu_torch/csrc/blockdense_matmat.cu",
+        "replaces": "gravomg_tpu/ops/pallas_blockdense.py:64 under jax.vmap "
+                    "(scripts/bench_configs.py:261-264)",
+        "launches": lob["b1_launches"],
+        "max_abs_err": lob["check"]["worst_abs"],
+        "ms": min(e32["kernel_ms"]),
+        "plain_ms": min(e32["plain_ms"]),
+        "bound_ms": e32["bound_ms"],
+        "bound_by": e32["bound_by"],
+        "library_ms": e32["library_ms"],
     }, {
         "name": "uniform_matvec",
         "route": "cuda",

@@ -13,8 +13,38 @@ from gravomg_tpu_torch.config import MultigridConfig
 from gravomg_tpu_torch.geometry.laplacian import graph_laplacian
 from gravomg_tpu_torch.hierarchy import Hierarchy, build_hierarchy
 from gravomg_tpu_torch.solve.cg import mg_pcg
+from gravomg_tpu_torch.solve.spmv import spmv
 from gravomg_tpu_torch.solve.vcycle import solve, solve_refined
 from gravomg_tpu_torch.types import EllOperator, Graph
+
+
+def spectral_alpha(graph: Graph, weighting: str = "invdist",
+                   target_frac: float = 0.25, rel_floor: float = 1e-5,
+                   lap_mass: Optional[Tuple] = None) -> torch.Tensor:
+    """Screening shift (in pencil units) for an eigen-preconditioner:
+    ``target_frac`` of an estimate of lam_1, clamped to [``rel_floor``,
+    1e-4] times mean(diag) / mean(mass).
+
+    The Poisson path's ``alpha="auto"`` (1e-4 of the mean diagonal)
+    grows like 1/h^3 in pencil units and overtakes lam_1 at scale, which
+    leaves the V-cycle a scaled identity on the low modes.  lam_1 is
+    estimated by the Rayleigh quotients of the three M-centred
+    coordinates, without those of negligible M-weighted variance (a
+    planar cloud's normal).  The floor keeps the shifted operator SPD
+    above f32 Galerkin noise (about 1e-6 of the diagonal)."""
+    lap, mass = (lap_mass if lap_mass is not None
+                 else graph_laplacian(graph, weighting))
+    pts = graph.points
+    v = pts - (torch.sum(mass[:, None] * pts, dim=0)
+               / torch.sum(mass))[None, :]
+    var = torch.sum(mass[:, None] * v * v, dim=0)
+    nondegenerate = var > 1e-6 * torch.max(var)
+    rq = torch.sum(v * spmv(lap, v), dim=0) / torch.clamp(var, min=1e-30)
+    lam1_est = torch.min(torch.where(nondegenerate, rq,
+                                     torch.full_like(rq, float("inf"))))
+    diag_over_mass = torch.mean(lap.diag) / torch.mean(mass)
+    return torch.clamp(target_frac * lam1_est, rel_floor * diag_over_mass,
+                       1e-4 * diag_over_mass)
 
 
 def screened_poisson_operator(graph: Graph, alpha=0.5,
@@ -28,13 +58,18 @@ def screened_poisson_operator(graph: Graph, alpha=0.5,
     ``rel_floor`` of the mean diagonal: with invdist weights a fixed
     alpha's shift falls below f32 resolution as the density grows, and
     the stored operator degenerates to a singular Laplacian.
+    ``alpha="spectral"`` sets the shift of :func:`spectral_alpha`, the
+    eigen-preconditioner's (``laplace_eigs``).
     """
     lap, mass = (lap_mass if lap_mass is not None
                  else graph_laplacian(graph, weighting))
     if isinstance(alpha, str):
-        if alpha != "auto":
+        if alpha == "auto":
+            alpha = rel_floor * torch.mean(lap.diag) / torch.mean(mass)
+        elif alpha == "spectral":
+            alpha = spectral_alpha(graph, lap_mass=(lap, mass))
+        else:
             raise ValueError(f"unknown alpha mode {alpha!r}")
-        alpha = rel_floor * torch.mean(lap.diag) / torch.mean(mass)
     return lap._replace(diag=lap.diag + alpha * mass), mass
 
 

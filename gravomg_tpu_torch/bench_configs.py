@@ -73,7 +73,7 @@ import torch
 
 from gravomg_tpu_torch.apps.heat import heat_geodesics
 from gravomg_tpu_torch.apps.poisson import screened_poisson_operator
-from gravomg_tpu_torch.apps.spectral import laplace_eigs, spectral_alpha
+from gravomg_tpu_torch.apps.spectral import laplace_eigs
 from gravomg_tpu_torch.bench import card_name
 from gravomg_tpu_torch.config import MultigridConfig
 from gravomg_tpu_torch.geometry.gridknn import grid_knn_graph_nosync
@@ -216,13 +216,10 @@ class Built(NamedTuple):
 def front_end(pts: np.ndarray, k: int, alpha="auto", device=None):
     """(graph, operator): ``pts`` in Morton order as f32, grid kNN
     (``KNN_MARGIN``; raises on a shortfall), the screened-Poisson
-    operator with ``alpha`` ("auto", a number, or a callable on the
-    graph, as c6's ``spectral_alpha``)."""
+    operator with ``alpha`` ("auto", "spectral" as c6's, or a number)."""
     dev = resolve_device(device)
     pts = pts[morton_order(pts)].astype(np.float32)
     graph = grid_knn_graph_nosync(pts, k, margin=KNN_MARGIN, device=dev)
-    if callable(alpha):
-        alpha = float(alpha(graph))
     op, _ = screened_poisson_operator(graph, alpha=alpha)
     return graph, op
 
@@ -497,7 +494,7 @@ def c6_spectral(device=None, n: Optional[int] = None) -> dict:
     peak = _Peak(dev)
     rec = c6_inputs(n)
     p = pipeline(rec.points, rec.k, rec.cfg, attach=False,
-                 alpha=spectral_alpha, device=dev)
+                 alpha="spectral", device=dev)
     eig = {}
     t, (lams, vecs, res) = timed("eigs_total_s", lambda: laplace_eigs(
         p.graph, k=C6_K, cfg=rec.cfg, h=p.h, iters=40, tol=1e-5,

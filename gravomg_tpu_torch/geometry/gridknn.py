@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from gravomg_tpu_torch.geometry.knn import knn_graph, symmetrized_knn_graph
-from gravomg_tpu_torch.ops.segment import build_ell_rows
 from gravomg_tpu_torch.types import INVALID_INDEX, Graph
 from gravomg_tpu_torch.utils.device import resolve_device
 
@@ -84,13 +83,12 @@ def grid_knn_graph_nosync(points_np: np.ndarray, k: int,
     One conservatively sized attempt (cell edge = ``margin`` x the
     largest kth-neighbour distance of a host subsample), as in the JAX
     package.  Raises RuntimeError if some point's k nearest are not
-    certified by the cell window, or some vertex's symmetrised degree
-    exceeds ``max_degree`` (default 2k).
+    certified by the cell window.  The table is ``max_degree`` wide
+    (default 2k), wider where some vertex's symmetrised degree needs it
+    (a hub that many points count among their k nearest).
     """
     device = resolve_device(device)
     v = points_np.shape[0]
-    if max_degree is None:
-        max_degree = 2 * k
     lo = points_np.min(axis=0)
     hi = points_np.max(axis=0)
     extent = float((hi - lo).max()) + 1e-12
@@ -122,21 +120,7 @@ def grid_knn_graph_nosync(points_np: np.ndarray, k: int,
     if short:
         raise RuntimeError("grid kNN shortfall: some point's k nearest "
                            "are not certified by its 27-cell window")
-    rows = torch.arange(v, dtype=torch.int32, device=device).repeat_interleave(k)
-    cols = idx.reshape(-1)
-    valid = cols != INVALID_INDEX
-    safe_cols = torch.where(valid, cols, torch.zeros_like(cols))
-    res = build_ell_rows(torch.cat([rows, safe_cols]),
-                         torch.cat([safe_cols, rows]),
-                         torch.cat([valid, valid]), v, max_degree)
-    if res.overflow:
-        raise RuntimeError(f"grid kNN: symmetrised degree exceeds "
-                           f"max_degree={max_degree}")
-    mask = res.columns != INVALID_INDEX
-    safe = torch.where(mask, res.columns, torch.zeros_like(res.columns))
-    dist = torch.linalg.norm(points[:, None, :] - points[safe], dim=-1)
-    dist = torch.where(mask, dist, torch.full_like(dist, float("inf")))
-    return Graph(res.columns, dist, points)
+    return symmetrized_knn_graph(points, idx, max_degree)
 
 
 def grid_knn_graph(points: torch.Tensor, k: int,

@@ -138,7 +138,7 @@ def test_recipe_inputs_match_script(name):
     meshes = rec.points if name == "c5b" else [rec.points]
     meshes_j = pts_j if name == "c5b" else [pts_j]
     assert len(meshes) == len(meshes_j)
-    port_alpha = bc.spectral_alpha if name == "c6" else "auto"
+    port_alpha = "spectral" if name == "c6" else "auto"
     for pts, pj in zip(meshes, meshes_j):
         np.testing.assert_array_equal(pts, pj)
         graph, op = bc.front_end(pts, rec.k, port_alpha, device="cpu")

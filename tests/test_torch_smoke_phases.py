@@ -34,6 +34,9 @@ def test_apps_and_lobpcg_phases_on_cpu():
     assert 1 <= lob["iters"] == len(lob["block_s"]) == len(lob["rr_s"]) <= 40
     assert lob["orth_err"] <= 1e-4 and lob["peak_bytes"] is None
     assert len(lob["lams"]) == 12
+    # Slab forms from 500 rows at 2,000 points: the (V, 12) cycle takes
+    # them, through B1's CPU twin (no launch off the card).
+    assert lob["slab_matvecs"] > 0 and lob["b1_launches"] == 0
 
 
 def test_batch_phases_on_cpu():
