@@ -8,7 +8,7 @@ script exits nonzero:
 
   1. environment: torch, CUDA, the card's name and power limit, nvcc,
      g++ and triton versions;
-  2. build: the five kernel sources (nvcc, sm_90a, one process each) and
+  2. build: the six kernel sources (nvcc, sm_90a, one process each) and
      the C++ coarsener (g++) from the sources in the checkout, all
      started together;
   3. setup at n = 1,000,000 (the bench's recipe): Morton-ordered torus,
@@ -80,8 +80,9 @@ script exits nonzero:
      8): ``heat_geodesics`` from vertex 0 (seconds of each refit,
      iterations, residual and seconds of both MG-PCG solves, each to
      1e-8, and K1's launches over the phase, which the refit's kept U
-     and U^T forms make, equal to heat_geodesics' slab matvecs; phi
-     finite, phi[0] = 0, the
+     and U^T forms make, equal to heat_geodesics' slab matvecs, and E1's
+     (the ELL kernel) equal to its float32 ELL products; phi finite,
+     phi[0] = 0, the
      mean of phi over bins of distance from the source rising over the
      first half of the distance range), then one ``implicit_smooth`` step
      (a (V, 3) stationary solve: A on the ELL gather, U and U^T through
@@ -99,7 +100,9 @@ script exits nonzero:
      peak device memory of the eigensolve above what the process held
      before it; the values finite and ascending, max|X^T M X - I| <=
      1e-4, |lam_0| <= 1e-3 * lam_11; B1's launches in the call, counted
-     from 0, equal to the cycle's (V, 12) slab matvecs; B1 against its
+     from 0, equal to the cycle's (V, 12) slab matvecs, and E1's equal to
+     the call's float32 ELL products (both counted where Python runs:
+     a replayed CUDA graph passes through neither); B1 against its
      twin on every slab form of that hierarchy at D=12 (per bucket and
      in one launch, f32 and bf16 m, bitwise repeatable), and B1 on its
      level-0 A at D=12, f32, timed as in phase 15 (b);
@@ -138,7 +141,8 @@ script exits nonzero:
      ELL MG-PCG, each residual re-measured in f64 with the unsharded
      operator (at most twice the unsharded solution's: the f32 rounding
      floor, far above 1e-8, bounds both), the step against the same step
-     unsharded, the 64 columns within 1e-6 of max|X| of the 1-D cycles;
+     unsharded through E1's twin, cycle included (and E1 against the
+     twin there), the 64 columns within 1e-6 of max|X| of the 1-D cycles;
      seconds of each solve and of the plans, peak device memory per
      rank.  Gloo moves every exchange through host memory: no number
      here measures a link between cards.  (b) One NCCL rank runs the
@@ -184,6 +188,19 @@ script exits nonzero:
      gathered windows, f32); then ``mg_solve`` with U1's launches counted
      from 0, equal to the cycle's 1-D uniform matvecs, and the same solve
      through the plain path (iterations within 1).
+ 21. the ELL kernel E1 (``csrc/ell_spmv.cu``), run right after phase 20:
+     on the c6 recipe's 100k kNN Laplacian (phase 14's front end) at
+     D = 1, 12 and 36 (LOBPCG's L X and L S are D = 12 and 36) and on
+     phase 3's 1M level-0 A at D = 1 (heat's A, whose slab form the
+     refit drops): E1 against its twin ``spmv_plain`` (each entry within
+     1e-6 of its row's sum of absolute terms) and twice on one x (bitwise
+     equal), its bytes (the benchmark's rule: nonzeros at 8 bytes, the
+     diagonal, x and y; the padding's indices beside them), bound, times
+     alone (L2 warm and flushed), per call (flushed and warm) and on the
+     host, the twin's and the library's (``torch.sparse.mm`` on CSR);
+     then, checked alike but not timed, L at D = 3 and 8 and L without
+     its last slot columns (K % 4 == 3) at D = 1 and 12 (the launcher's other
+     variants).
 
 Phases 3 (K1's check), 5, 6, 13-17, 18 (a) and (b) and 19 are functions
 of (torch, device, n, ...) that also run on the CPU at a small n
@@ -196,15 +213,17 @@ A kernel's bound is the least time the card could take: the bytes of its
 inputs and outputs that it must move, each once, over the H100's
 published 3.35 TB/s, or its multiply-adds (two operations each) over the
 published 67 TFLOP/s of f32 outside the tensor cores, whichever is
-larger (bytes for all five: B1's multiply-adds are counted on the
+larger (bytes for all six: B1's multiply-adds are counted on the
 positions it multiplies, those where a block's 8 rows hold a nonzero;
 K1's bytes are those of the blocks inv_block_perm names);
 gravomg_tpu_torch/probes/timing.py computes it.  A share of the bound
 above 1.05 means a count is wrong, and fails the run.
 
-The line before the last is a JSON object describing the five kernels,
+The line before the last is a JSON object describing the six kernels,
 B1 in two rows (``case``: D=64 on the 1M level-0 A of phase 15 (b), and
-D=12 on the 100k level-0 A of phase 14, where laplace_eigs runs it);
+D=12 on the 100k level-0 A of phase 14, where laplace_eigs runs it), E1
+in two (D=36 on the 100k Laplacian, laplace_eigs' L S, and D=1 on the 1M
+level-0 A, heat's);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the package beside this script, it exits nonzero and prints
 no result.  Longer results go to chiprun_out/chip_smoke.json.
@@ -212,6 +231,7 @@ no result.  Longer results go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -271,13 +291,14 @@ def phase_environment(torch):
 
 
 def _libraries():
-    from gravomg_tpu_torch.ops import (blockdense_cuda, mxu_cuda,
+    from gravomg_tpu_torch.ops import (blockdense_cuda, ell_cuda, mxu_cuda,
                                        uniform_cuda, window_gather)
     return {"blockdense_matvec": blockdense_cuda.LIBRARY,
             "blockdense_matmat": blockdense_cuda.MATMAT_LIBRARY,
             "mxu_matvec": mxu_cuda.LIBRARY,
             "uniform_matvec": uniform_cuda.LIBRARY,
-            "window_gather": window_gather.LIBRARY}
+            "window_gather": window_gather.LIBRARY,
+            "ell_spmv": ell_cuda.LIBRARY}
 
 
 def phase_build():
@@ -1226,11 +1247,13 @@ def phase_apps(torch, device, n, problem=None):
     hierarchy, graph) of phase 3, else the recipe is built here.  On the
     card K1's launches over the phase, and B1's in the (V, 3) smoothing
     solve, must be above 0, and K1's over ``heat_geodesics`` must equal
-    its slab matvecs."""
+    its slab matvecs and E1's its float32 ELL products (off the card E1
+    never launches)."""
     import dataclasses
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.ops.blockdense_cuda import (blockdense_matmat_cuda,
                                                        blockdense_matvec_cuda)
+    from gravomg_tpu_torch.ops.ell_cuda import ell_spmv_cuda
     from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
     if problem is None:
@@ -1241,15 +1264,18 @@ def phase_apps(torch, device, n, problem=None):
         cfg, h, graph = problem
     out = {"n": graph.num_vertices}
     blockdense_matvec_cuda.launches = 0
+    ell_spmv_cuda.launches = 0
     heat = out["heat"] = {}
     synchronize(dev)
     t0 = time.perf_counter()
-    phi, heat["slab_matvecs"] = _count_slab_matvecs(
-        torch, lambda: gt.heat_geodesics(graph, h, 0, cfg=cfg, record=heat),
-        ndim=1)
+    (phi, heat["slab_matvecs"]), heat["ell_products"] = _count_ell_products(
+        torch, lambda: _count_slab_matvecs(
+            torch, lambda: gt.heat_geodesics(graph, h, 0, cfg=cfg,
+                                             record=heat), ndim=1))
     synchronize(dev)
     heat["total_s"] = time.perf_counter() - t0
     heat["k1_launches"] = blockdense_matvec_cuda.launches
+    heat["e1_launches"] = ell_spmv_cuda.launches
     for name in ("heat", "poisson"):
         print(f"[13] heat_geodesics {name} step: refit "
               f"{heat[f'refit_{name}_s']:.3f} s, MG-PCG "
@@ -1264,7 +1290,8 @@ def phase_apps(torch, device, n, problem=None):
                 phi0=float(phi_np[0]), phi_max=float(phi_np.max()))
     print(f"[13] heat_geodesics {heat['total_s']:.3f} s in all; K1 "
           f"launches {heat['k1_launches']} for {heat['slab_matvecs']} slab "
-          f"matvecs; phi finite {finite}, "
+          f"matvecs; E1 launches {heat['e1_launches']} for "
+          f"{heat['ell_products']} float32 ELL products; phi finite {finite}, "
           f"phi[0] {heat['phi0']}, max {heat['phi_max']:.4g}; mean phi over "
           f"the first 8 of 16 bins of distance from the source "
           f"{[round(m, 4) for m in means]}")
@@ -1300,6 +1327,12 @@ def phase_apps(torch, device, n, problem=None):
         raise AssertionError(f"heat_geodesics: K1 launched "
                              f"{heat['k1_launches']} times for "
                              f"{heat['slab_matvecs']} slab matvecs")
+    if heat["e1_launches"] != (heat["ell_products"] if dev.type == "cuda"
+                               else 0) or not heat["ell_products"]:
+        raise AssertionError(f"heat_geodesics: E1 launched "
+                             f"{heat['e1_launches']} times for "
+                             f"{heat['ell_products']} float32 ELL products "
+                             f"on {dev.type}")
     if dev.type == "cuda" and smooth["b1_launches"] <= 0:
         raise AssertionError("implicit_smooth never launched B1")
     return out
@@ -1322,6 +1355,7 @@ def phase_lobpcg(torch, device, n):
     from gravomg_tpu_torch import bench_configs as bc
     from gravomg_tpu_torch.apps.spectral import spectral_alpha
     from gravomg_tpu_torch.ops.blockdense_cuda import blockdense_matmat_cuda
+    from gravomg_tpu_torch.ops.ell_cuda import ell_spmv_cuda
     from gravomg_tpu_torch.solve.vcycle import attach_operators
     from gravomg_tpu_torch.utils.profiling import synchronize
     dev = torch.device(device)
@@ -1345,13 +1379,16 @@ def phase_lobpcg(torch, device, n):
         held = torch.cuda.memory_allocated()
     rec = {}
     blockdense_matmat_cuda.launches = 0
+    ell_spmv_cuda.launches = 0
     t0 = time.perf_counter()
-    (lams, vecs, res), matvecs = _count_slab_matvecs(
-        torch, lambda: gt.laplace_eigs(graph, k=k, cfg=cfg, h=h, iters=40,
-                                       tol=1e-5, record=rec))
+    ((lams, vecs, res), matvecs), products = _count_ell_products(
+        torch, lambda: _count_slab_matvecs(
+            torch, lambda: gt.laplace_eigs(graph, k=k, cfg=cfg, h=h,
+                                           iters=40, tol=1e-5, record=rec)))
     synchronize(dev)
     total = time.perf_counter() - t0
     launches = blockdense_matmat_cuda.launches
+    e1_launches = ell_spmv_cuda.launches
     v64 = vecs.double()
     orth = float((v64.T @ (mass.double()[:, None] * v64)
                   - torch.eye(k, dtype=torch.float64, device=vecs.device))
@@ -1363,6 +1400,7 @@ def phase_lobpcg(torch, device, n):
     out.update(iters=rec["iters"], total_s=total, block_s=block, rr_s=rr,
                lams=lam.tolist(), max_resnorm=float(res.max()),
                orth_err=orth, b1_launches=launches, slab_matvecs=matvecs,
+               e1_launches=e1_launches, ell_products=products,
                # Above what the process held before (the 200k hierarchy).
                peak_bytes=torch.cuda.max_memory_allocated() - held
                if on_card else None)
@@ -1377,7 +1415,8 @@ def phase_lobpcg(torch, device, n):
           f"1e-2); max|X^T M X - I| {orth:.3e}; peak device memory of "
           f"laplace_eigs {out['peak_bytes']} bytes (above what the process "
           f"held before it); B1 launched {launches} times for {matvecs} "
-          f"({n}, {k}) slab matvecs")
+          f"({n}, {k}) slab matvecs; E1 {e1_launches} times for {products} "
+          f"float32 ELL products")
     finite = all(bool(torch.isfinite(t).all()) for t in (lams, vecs, res))
     ascending = bool(np.all(np.diff(lam) >= 0))
     if not (finite and ascending and orth <= 1e-4
@@ -1388,6 +1427,10 @@ def phase_lobpcg(torch, device, n):
     if launches != (matvecs if on_card else 0) or not matvecs:
         raise AssertionError(f"B1 launched {launches} times for {matvecs} "
                              f"slab matvecs of laplace_eigs on {dev.type}")
+    if e1_launches != (products if on_card else 0) or not products:
+        raise AssertionError(f"E1 launched {e1_launches} times for "
+                             f"{products} float32 ELL products of "
+                             f"laplace_eigs on {dev.type}")
     if on_card:
         out["check"] = _check_matmat(torch, _slabs(h), (k,), "14")
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1547,6 +1590,44 @@ def _count_slab_matvecs(torch, fn, ndim=2):
             torch.cuda.synchronize()
     finally:
         vc.slab_matvec = inner
+    return res, count[0]
+
+
+@contextlib.contextmanager
+def _spmv_replaced(make):
+    """While open, ``spmv`` in every port module that imports it by name
+    (``solve/spmv.py`` itself too) is ``make(spmv)``."""
+    from gravomg_tpu_torch.solve import spmv as sp
+    inner = sp.spmv
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("gravomg_tpu_torch")
+            and getattr(m, "spmv", None) is inner]
+    for m in mods:
+        m.spmv = make(inner)
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.spmv = inner
+
+
+def _count_ell_products(torch, fn):
+    """(result of fn(), number of products ``spmv`` sends to E1 on the
+    card: one operator with float32 values and a float32 x), counted at
+    every call of ``spmv`` from the port's modules."""
+    count = [0]
+
+    def counting(inner):
+        def counted(op, x):
+            if (op.diag.ndim == 1 and x.dtype == torch.float32
+                    and op.offdiag.dtype == torch.float32):
+                count[0] += 1
+            return inner(op, x)
+        return counted
+    with _spmv_replaced(counting):
+        res = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     return res, count[0]
 
 
@@ -1843,7 +1924,8 @@ def phase_multidevice(torch, device, n, world_size, problem=None,
     against the unsharded solves on the same ELL hierarchy: each
     solution's residual re-measured with the unsharded operator,
     iterations within 1 of the unsharded ELL MG-PCG, the step's r
-    against b - A x, the batched columns against 1-D cycles of the same
+    against b - A x with the twin's A x (the ranks' arithmetic) and E1's
+    A x against the twin's, the batched columns against 1-D cycles of the same
     columns within 1e-6 of max|X|.  (b) On the card, one NCCL rank runs
     the same two solves: the unsharded iteration count.  (c) The halo
     plan at nd = 8 on the greedy hierarchy, beside HALO_1M.json at 1M.
@@ -1853,7 +1935,9 @@ def phase_multidevice(torch, device, n, world_size, problem=None,
     import numpy as np
     import gravomg_tpu_torch as gt
     from gravomg_tpu_torch.parallel import run_ranks
+    from gravomg_tpu_torch.probes import ell
     from gravomg_tpu_torch.probes.multidevice import solve_rank
+    from gravomg_tpu_torch.solve.spmv import spmv_plain
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
@@ -1917,14 +2001,23 @@ def phase_multidevice(torch, device, n, world_size, problem=None,
                     and x.shape == b.shape):
                 raise AssertionError(f"{name}_solve: {out[name]} against "
                                      f"{out['unsharded']}")
-        # The same step unsharded: x = 0, r = b, p = z = M b.
+        # The same step unsharded: x = 0, r = b, p = z = M b.  The ranks'
+        # rows run E1's twin's arithmetic (parallel/sharding.py::
+        # _ell_rows), and so does this step, cycle included: r cancels
+        # most of A z's terms, so E1's other order of sums in z and A z
+        # shows in r at 1e-2 of max|r|.  E1 is held to the twin on the
+        # step's A z instead.
         hp = gt.pad_solver_levels(h, world_size)
         a0 = hp.levels[0].op
         r0 = torch.zeros((a0.num_vertices,), dtype=b.dtype, device=dev)
         r0[:n] = b
-        z0 = gt.v_cycle(hp, torch.zeros_like(r0), r0, cfg, x0_zero=True)
+        with _spmv_replaced(lambda inner: spmv_plain):
+            z0 = gt.v_cycle(hp, torch.zeros_like(r0), r0, cfg, x0_zero=True)
         rz0 = torch.dot(r0, z0)
-        ap = gt.spmv(a0, z0)
+        ap = spmv_plain(a0, z0)
+        e1 = ell.check(a0, z0, gt.spmv(a0, z0))
+        if not e1["within_tol"]:
+            raise AssertionError(f"E1 on the padded level-0 A: {e1}")
         alpha = rz0 / torch.dot(z0, ap)
         want = {"x": alpha * z0, "r": r0 - alpha * ap}
         gaps = {}
@@ -1935,7 +2028,9 @@ def phase_multidevice(torch, device, n, world_size, problem=None,
         out["step"] = {"rel_to_unsharded": gaps, "rz": sorted(rzs)}
         print(f"[17] (a) vertex_sharded_cg_step from x = 0 against the same "
               f"step unsharded: max|d|/max|v| x {gaps['x']:.3e}, r "
-              f"{gaps['r']:.3e}; r.z {sorted(rzs)} on every rank")
+              f"{gaps['r']:.3e}; r.z {sorted(rzs)} on every rank; E1's A z "
+              f"against the twin's max|d| {e1['max_abs_err']:.3e}, within "
+              f"{ell.TOL} of |terms|")
         if not (len(rzs) == 1 and max(gaps.values()) <= TOL_COLUMNS):
             raise AssertionError(f"vertex_sharded_cg_step: {out['step']}")
         del hp, a0, r0, z0, ap, want
@@ -2295,6 +2390,70 @@ def phase_uniform(torch, cfg, h):
     return out
 
 
+def phase_ell(torch, h):
+    """Phase 21: the ELL kernel E1 on the c6 recipe's 100k kNN Laplacian
+    (the front end of phase 14's recipe, L as laplace_eigs forms it) at
+    D = 1, 12 and 36, and on phase 3's 1M level-0 A at D = 1: against
+    its twin (``probes/ell.py::check``), twice on one x (bitwise equal),
+    and ``measure``'s bytes, bound and times.  Then, checked the same
+    way but not timed, the launcher's other variants: L at D = 3 (a
+    column a lane) and D = 8 (four a lane), and L without its last slot
+    columns (K % 4 == 3: a slot a load) at D = 1 and 12."""
+    import gravomg_tpu_torch as gt
+    from gravomg_tpu_torch import bench_configs as bc
+    from gravomg_tpu_torch.ops.ell_cuda import ell_spmv_cuda
+    from gravomg_tpu_torch.probes import ell
+    rec = bc.c6_inputs(N_LOBPCG)
+    graph, _ = bc.front_end(rec.points, rec.k, alpha="spectral",
+                            device="cuda")
+    lap, _ = gt.graph_laplacian(graph, "invdist")
+    keep = lap.neighbors.shape[1] - 1 - lap.neighbors.shape[1] % 4  # 3 mod 4
+    cut = lap._replace(neighbors=lap.neighbors[:, :keep].contiguous(),
+                       offdiag=lap.offdiag[:, :keep].contiguous())
+    cases = [("100k L", lap, d, True) for d in (1, bc.C6_K, 3 * bc.C6_K)]
+    cases.append(("1M A", h.levels[0].op, 1, True))
+    cases += [("100k L", lap, 3, False), ("100k L", lap, 8, False),
+              (f"100k L K={cut.neighbors.shape[1]}", cut, 1, False),
+              (f"100k L K={cut.neighbors.shape[1]}", cut, bc.C6_K, False)]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {"cases": {}, "checked": {}, "worst_abs": 0.0}
+    for label, op, d, timed in cases:
+        v = op.num_vertices
+        x = torch.randn((v,) if d == 1 else (v, d), generator=gen,
+                        device="cuda")
+        y1 = ell_spmv_cuda(op, x)
+        y2 = ell_spmv_cuda(op, x)
+        chk = ell.check(op, x, y1)
+        if not (chk["within_tol"] and torch.equal(y1, y2)):
+            raise AssertionError(f"E1 on {label} D={d}: {chk}, bitwise "
+                                 f"repeatable {torch.equal(y1, y2)}")
+        out["worst_abs"] = max(out["worst_abs"], chk["max_abs_err"])
+        if not timed:
+            out["checked"][f"{label} D={d}"] = chk
+            print(f"[21] {label} {tuple(op.neighbors.shape)} D={d}: max|d| "
+                  f"{chk['max_abs_err']:.3e} within {ell.TOL} of |terms|; "
+                  f"bitwise repeatable")
+            continue
+        row = ell.measure(op, x)
+        row.update(chk)
+        out["cases"][f"{label} D={d}"] = row
+        print(f"[21] {label} {tuple(row['shape'])} D={d}: E1 per call "
+              f"{row['per_call_ms']:.4f} ms L2 flushed, "
+              f"{row['per_call_warm_ms']:.4f} warm (host "
+              f"{row['host_us']:.1f} us), alone {_fmt(row['alone_ms'], 4)} "
+              f"ms, flushed {_fmt(row['alone_cold_ms'], 4)} ms; bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
+              f"{row['io_bytes']} bytes; padding's indices "
+              f"{row['padding_bytes']} bytes more), share "
+              f"{row['share_of_bound']:.3f}; twin {row['plain_ms']:.4f} ms "
+              f"(host {row['plain_host_us']:.1f} us, "
+              f"{row['plain_launches_a_call']} launches); library "
+              f"{row['library_ms']:.4f} ms; max|d| "
+              f"{chk['max_abs_err']:.3e} within {ell.TOL} of |terms|; "
+              f"bitwise repeatable")
+    return out
+
+
 def _share_rows(obj, path=""):
     """(path, row) for every timed row of the report: a dict with a
     share of its bound and the bytes that bound counts."""
@@ -2359,6 +2518,7 @@ def main() -> int:
     report["profile"] = phase_profile(torch, cfg, h,
                                       report["main"]["vcycle_ms"])
     report["uniform"] = phase_uniform(torch, cfg, h)
+    report["ell"] = phase_ell(torch, h)
     report["windows_1m"] = phase_window_finding(h)
     report["apps"] = phase_apps(torch, "cuda", N, (cfg, h, graph))
     report["rhs_1m"] = phase_rhs_1m(torch, cfg, h)
@@ -2425,6 +2585,8 @@ def main() -> int:
     e32 = lob[f"D{lob['k']} float32"]
     g1m = report["gather"]["P1_1000000"]
     u32 = report["uniform"]["forms"][report["uniform"]["timed"]]
+    e36 = report["ell"]["cases"][f"100k L D={3 * lob['k']}"]
+    e1m = report["ell"]["cases"]["1M A D=1"]
     kernels = {"kernels": [{
         "name": "blockdense_matvec",
         "route": "cuda",
@@ -2508,7 +2670,25 @@ def main() -> int:
         "bound_ms": u32["bound_ms"],
         "bound_by": u32["bound_by"],
         "library_ms": u32["library_ms"],
-    }]}
+    }] + [{
+        "name": "ell_spmv",
+        "case": case,
+        "route": "cuda",
+        "source": "gravomg_tpu_torch/csrc/ell_spmv.cu",
+        # No TPU kernel: the JAX package runs the ELL product through XLA.
+        "replaces": "none (XLA: gravomg_tpu/solve/spmv.py)",
+        "launches": launches,
+        "max_abs_err": report["ell"]["worst_abs"],
+        "ms": row["per_call_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    } for case, row, launches in (
+        (f"D={3 * lob['k']}, 100k L, laplace_eigs' L S (phase 21)", e36,
+         lob["e1_launches"]),
+        ("D=1, 1M level-0 A, heat_geodesics' A (phase 21)", e1m,
+         report["apps"]["heat"]["e1_launches"]))]}
     _check_shares(kernels["kernels"], report)
     print(f"[done] {report['total_s']:.1f} s")
     print(json.dumps(kernels))

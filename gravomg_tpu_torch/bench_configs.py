@@ -83,6 +83,7 @@ from gravomg_tpu_torch.hierarchy import build_hierarchy_device
 from gravomg_tpu_torch.ops.blockdense_cuda import (LIBRARY, MATMAT_LIBRARY,
                                                    blockdense_matmat_cuda,
                                                    blockdense_matvec_cuda)
+from gravomg_tpu_torch.ops.ell_cuda import LIBRARY as ELL_LIBRARY
 from gravomg_tpu_torch.ops.uniform_cuda import LIBRARY as UNIFORM_LIBRARY
 from gravomg_tpu_torch.parallel.batch import (attach_collection,
                                               batched_v_cycle, stack_solvers)
@@ -518,12 +519,12 @@ SIZES = {"c1": 5000, "c2": 35_000, "c3": 170_000, "c5": 20_000,
 
 
 def warm_up(dev: torch.device) -> None:
-    """On the card, K1, B1 and the uniform kernel built (nvcc, all
+    """On the card, K1, B1, the uniform kernel and E1 built (nvcc, all
     started together) and loaded; then one small pipeline and cycle on
     ``dev``, so that no config's build time holds the set-up of the
     context or a library."""
     if dev.type == "cuda":
-        libs = (LIBRARY, MATMAT_LIBRARY, UNIFORM_LIBRARY)
+        libs = (LIBRARY, MATMAT_LIBRARY, UNIFORM_LIBRARY, ELL_LIBRARY)
         with ThreadPoolExecutor(len(libs)) as pool:
             for f in [pool.submit(lib.load) for lib in libs]:
                 f.result()

@@ -23,7 +23,8 @@ import torch
 from gravomg_tpu_torch.solve.smoothers import ChebyshevParams
 from gravomg_tpu_torch.solve.vcycle import (SolverHierarchy, SolverLevel,
                                             attach_restrictions)
-from gravomg_tpu_torch.types import EllOperator, Graph, Prolongation
+from gravomg_tpu_torch.types import (INVALID_INDEX, EllOperator, Graph,
+                                     Prolongation)
 from gravomg_tpu_torch.utils.device import resolve_device
 
 
@@ -54,14 +55,25 @@ def solver_from_numpy(arrays: Mapping[str, np.ndarray],
     """Tensors on ``device`` (the card unless the caller names another:
     :func:`resolve_device`) from the npz key layout (a loaded npz or a
     dict, e.g. the arrays of a JAX ``SolverHierarchy``), with the
-    gather-form U^T tables recomputed (derived data, never stored)."""
+    gather-form U^T tables recomputed (derived data, never stored).
+
+    Every tensor is row-major, whatever order the file stored (JAX saves
+    its tables column-major), as the ELL kernel reads them; a level's
+    real neighbour slots must lie in [0, V), which the kernel takes on
+    trust, else ValueError."""
     device = resolve_device(device)
 
     def t(key):
-        return torch.as_tensor(np.asarray(arrays[key]), device=device)
+        return torch.as_tensor(np.ascontiguousarray(arrays[key]),
+                               device=device)
 
     levels = []
     for i in range(int(arrays["n_levels"])):
+        nbr = np.asarray(arrays[f"l{i}_nbr"])
+        real = nbr[nbr != INVALID_INDEX]
+        if real.size and (real.min() < 0 or real.max() >= nbr.shape[0]):
+            raise ValueError(f"level {i}: a neighbour index outside "
+                             f"[0, {nbr.shape[0]})")
         op = EllOperator(t(f"l{i}_nbr"), t(f"l{i}_off"), t(f"l{i}_diag"))
         u = None
         if f"l{i}_ucols" in arrays:

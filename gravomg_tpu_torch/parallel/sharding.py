@@ -300,7 +300,8 @@ def _fast_rows(form, x_full: torch.Tensor, span) -> torch.Tensor:
 
 def _ell_rows(op: EllOperator, x_full: torch.Tensor,
               x_local: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of A x (``spmv``'s arithmetic, row for row)."""
+    """This rank's rows of A x (``spmv_plain``'s arithmetic, row for
+    row)."""
     safe = op.safe_neighbors()
     w = torch.where(op.mask, op.offdiag, torch.zeros_like(op.offdiag))
     if x_full.ndim == 1:

@@ -30,6 +30,8 @@ def test_apps_and_lobpcg_phases_on_cpu():
     assert heat["heat_rel"] <= 1e-8 and heat["poisson_rel"] <= 1e-8
     assert len(heat["bin_means"]) == 8
     assert smooth["finite"] and smooth["steps"][0]["cycles"] >= 1
+    # heat's float32 ELL products take E1's CPU twin: no launch.
+    assert heat["ell_products"] > 0 and heat["e1_launches"] == 0
     lob = cs.phase_lobpcg(torch, "cpu", 2000)
     assert 1 <= lob["iters"] == len(lob["block_s"]) == len(lob["rr_s"]) <= 40
     assert lob["orth_err"] <= 1e-4 and lob["peak_bytes"] is None
@@ -37,6 +39,7 @@ def test_apps_and_lobpcg_phases_on_cpu():
     # Slab forms from 500 rows at 2,000 points: the (V, 12) cycle takes
     # them, through B1's CPU twin (no launch off the card).
     assert lob["slab_matvecs"] > 0 and lob["b1_launches"] == 0
+    assert lob["ell_products"] > 0 and lob["e1_launches"] == 0
 
 
 def test_batch_phases_on_cpu():
